@@ -1,0 +1,17 @@
+from .flame import FlameModel, FlameParams, flame_decode
+from .landmarks import LandmarkEmbedding, get_68_landmarks
+from .lbs import lbs
+from .projection import weak_perspective_project
+from .rotation import rodrigues, rot_mat_from_6dof
+
+__all__ = [
+    "FlameModel",
+    "FlameParams",
+    "flame_decode",
+    "LandmarkEmbedding",
+    "get_68_landmarks",
+    "lbs",
+    "weak_perspective_project",
+    "rodrigues",
+    "rot_mat_from_6dof",
+]

@@ -1,0 +1,113 @@
+"""Staged ResNet-50 encoder for DAD-3DNet. Mirrors
+``dad3dheads_tpu/models/resnet.py``: an init block (7x7/2 conv + BN + ReLU +
+3x3/2 max pool), then bottleneck stages of 3/4/6/3 units with 256/512/1024/2048
+output channels and strides 1/2/2/2 (stride on the 3x3 conv).
+
+Modules take NCHW tensors (the network keeps them channels_last in memory).
+Attribute names follow the reference's pytorchcv state-dict keys
+(``model.init_block.conv.{conv,bn}``, ``model.stage{S}.unit{U}.body.conv{1,2,3}``,
+``...unit1.identity_conv``), so a reference state dict loads as is.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+BN_EPS = 1e-5
+
+ENCODER_CHANNELS: Dict[str, int] = {
+    "layer0": 2048, "layer1": 1024, "layer2": 512, "layer3": 256, "layer4": 64,
+}
+RESNET50_UNITS = (3, 4, 6, 3)
+RESNET50_CHANNELS = (256, 512, 1024, 2048)
+
+
+class ConvBN(nn.Module):
+    """Bias-free conv with explicit symmetric padding k // 2, BN, optional ReLU."""
+
+    def __init__(self, in_c: int, out_c: int, kernel: int = 3, stride: int = 1, use_relu: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(in_c, out_c, kernel, stride=stride, padding=kernel // 2, bias=False)
+        self.bn = nn.BatchNorm2d(out_c, eps=BN_EPS)
+        self.use_relu = use_relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return F.relu(x) if self.use_relu else x
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 (strided) -> 1x1 with a projection shortcut where the shape
+    changes."""
+
+    def __init__(self, in_c: int, out_c: int, stride: int = 1):
+        super().__init__()
+        inner = out_c // 4
+        self.body = nn.Module()
+        self.body.conv1 = ConvBN(in_c, inner, 1)
+        self.body.conv2 = ConvBN(inner, inner, 3, stride)
+        self.body.conv3 = ConvBN(inner, out_c, 1, use_relu=False)
+        self.identity_conv = (
+            ConvBN(in_c, out_c, 1, stride, use_relu=False)
+            if stride != 1 or in_c != out_c
+            else None
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.body.conv3(self.body.conv2(self.body.conv1(x)))
+        identity = x if self.identity_conv is None else self.identity_conv(x)
+        return F.relu(y + identity)
+
+
+class ResNetInitBlock(nn.Module):
+    def __init__(self, out_c: int = 64):
+        super().__init__()
+        self.conv = ConvBN(3, out_c, 7, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.max_pool2d(self.conv(x), 3, stride=2, padding=1)
+
+
+class ResNetStage(nn.Sequential):
+    """``num_units`` bottlenecks named unit1..unitN; the first one strides."""
+
+    def __init__(self, in_c: int, out_c: int, num_units: int, stride: int):
+        super().__init__()
+        for u in range(num_units):
+            self.add_module(
+                f"unit{u + 1}", Bottleneck(in_c if u == 0 else out_c, out_c, stride if u == 0 else 1)
+            )
+
+
+class ResNet50Stages(nn.Module):
+    """The five stages exposed separately: DAD-3DNet runs stages 0-3, branches
+    through BiFPN + fusion, then runs stage 4 on the fused map."""
+
+    encoder_channels = ENCODER_CHANNELS
+
+    def __init__(self):
+        super().__init__()
+        self.model = nn.ModuleDict({"init_block": ResNetInitBlock(64)})
+        in_c = 64
+        for s, (units, out_c) in enumerate(zip(RESNET50_UNITS, RESNET50_CHANNELS), start=1):
+            self.model[f"stage{s}"] = ResNetStage(in_c, out_c, units, 1 if s == 1 else 2)
+            in_c = out_c
+
+    def stages_backbone(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Run stages 0..3, returning each output."""
+        outs = [self.model["init_block"](x)]
+        for s in (1, 2, 3):
+            outs.append(self.model[f"stage{s}"](outs[-1]))
+        return outs
+
+    def final_stage(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model["stage4"](x)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        outs = self.stages_backbone(x)
+        outs.append(self.final_stage(outs[-1]))
+        return outs

@@ -1,0 +1,109 @@
+"""Build and bind the hand-written CUDA kernels of ``dad3dheads_tpu_torch/csrc``.
+
+One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface, which ``ctypes`` loads. The library
+is built on first use into ``dad3dheads_tpu_torch/build/`` (git-ignored) and
+named by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads in milliseconds. Nothing here runs at import time.
+
+Every C entry point takes device pointers, int sizes, the device ordinal and a
+``cudaStream_t``, launches on that stream without synchronising, and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C name -> argtypes; every function returns a cudaError_t as int
+_SIGNATURES = {
+    # betas, dirs, template, out, B, K, N, device, stream
+    "d3d_blend_shapes_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # images, out, B, H, W, scale[3], bias[3], device, stream
+    "d3d_normalize_u8": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libdad3d_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.is_file():
+        return str(candidate)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the CUDA "
+            "kernels of dad3dheads_tpu_torch are built on first use on a "
+            "machine with the CUDA toolkit"
+        )
+    return found
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels unless the library for these sources exists.
+    Returns its path and the seconds spent compiling (0.0 when cached)."""
+    path = library_path()
+    if path.is_file():
+        return path, 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, CSRC_DIR.glob("*.cu"))]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    os.replace(tmp, path)  # atomic: a concurrent loader never sees a partial file
+    return path, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    lib = ctypes.CDLL(str(build()[0]))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError_t {code}")
+
+
+def launch_args(t: torch.Tensor) -> tuple[int, int]:
+    """(device ordinal, current stream handle) for a launch next to ``t``."""
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream

@@ -36,3 +36,7 @@ def flame_model():
 @pytest.fixture()
 def rng():
     return np.random.default_rng(1234)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skipped without one")

@@ -1,0 +1,123 @@
+"""The whole slice: the port's FaceMeshPredictor against the JAX predictor on
+one ``.msgpack`` checkpoint and the same images, and the port's freedom from
+JAX."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from dad3dheads_tpu.api import predictor as jpred
+from dad3dheads_tpu.models import create_model as jax_create_model
+from dad3dheads_tpu_torch.api import predictor as tpred
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+IMG = 64
+
+
+def seeded_variables(seed: int):
+    """Random flax variables of the model's tree shapes, drawn with numpy:
+    kernels at half the lecun-normal variance (which keeps this random
+    trunk's 3DMM out of tanh saturation), BN statistics and affine terms
+    non-trivial. The shapes come from tracing ``model.init`` without
+    compiling it."""
+    model = jax_create_model({})
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 3)), train=False)
+    )
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name, shape = jax.tree_util.keystr(path), leaf.shape
+        if name.endswith("['kernel']"):
+            value = rng.normal(size=shape) * np.sqrt(0.5 / np.prod(shape[:-1]))
+        elif name.endswith(("['var']", "['scale']", "['w1']", "['w2']")):
+            value = rng.uniform(0.75, 1.25, size=shape)
+        elif name.endswith("['depthwise_scale']"):
+            value = rng.normal(size=shape)
+        else:  # biases and BN means
+            value = rng.normal(size=shape) * 0.1
+        return value.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+@pytest.fixture(scope="module")
+def predictors(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("ck") / "dad_3dnet.msgpack")
+    jpred.save_predictor_checkpoint(seeded_variables(2), path)
+    config = {"img_size": IMG}
+    return (
+        jpred.FaceMeshPredictor(config=config, checkpoint_path=path),
+        tpred.FaceMeshPredictor(config=config, checkpoint_path=path, device="cpu"),
+    )
+
+
+def test_predict_batch_matches_jax(predictors):
+    """3DMM and 3D vertices atol 1e-4; 2D points and projected vertices atol
+    1e-2 px (fp32 network, sums in another order)."""
+    jp, tp = predictors
+    images = np.random.default_rng(3).integers(0, 256, size=(3, IMG, IMG, 3), dtype=np.uint8)
+    ref, out = jp.predict_batch(images), tp.predict_batch(images)
+    assert set(out) == set(ref)
+    for key in ref:
+        assert out[key].shape == ref[key].shape and out[key].dtype == ref[key].dtype, key
+    for key, atol in (("3dmm_params", 1e-4), ("3d_vertices", 1e-4), ("points", 1e-2), ("projected_vertices", 1e-2)):
+        np.testing.assert_allclose(out[key], ref[key], atol=atol, err_msg=key)
+
+
+def test_call_matches_jax(predictors):
+    """One image of another size through resize, pad and readjustment. The
+    readjusted points are truncated to ints, so they may differ by one."""
+    jp, tp = predictors
+    image = np.random.default_rng(4).integers(0, 256, size=(50, 80, 3), dtype=np.uint8)
+    ref, out = jp(image), tp(image)
+    for key in ref:
+        assert out[key].shape == ref[key].shape and out[key].dtype == ref[key].dtype, key
+    np.testing.assert_allclose(out["3dmm_params"], ref["3dmm_params"], atol=1e-4)
+    np.testing.assert_allclose(out["3d_vertices"], ref["3d_vertices"], atol=1e-4)
+    np.testing.assert_allclose(out["projected_vertices"], ref["projected_vertices"], atol=1e-2)
+    assert np.abs(out["points"] - ref["points"]).max() <= 1
+
+
+def test_decode_heatmap_branch_matches_jax():
+    """Without a landmark head, landmarks are the heatmap argmax x stride."""
+    rng = np.random.default_rng(5)
+    heat = rng.normal(size=(2, 16, 16, 68)).astype(np.float32)
+    p3dmm = rng.normal(size=(2, 413)).astype(np.float32)
+    key_h, key_p = jpred.OUTPUT_LANDMARKS_HEATMAP, jpred.OUTPUT_3DMM_PARAMS
+    ref = jpred.decode_pipeline_outputs({key_h: jnp.asarray(heat), key_p: jnp.asarray(p3dmm)}, 4, IMG)
+    out = tpred.decode_pipeline_outputs({key_h: torch.from_numpy(heat), key_p: torch.from_numpy(p3dmm)}, 4, IMG)
+    np.testing.assert_array_equal(out["landmarks"].numpy().reshape(2, -1), np.asarray(ref["landmarks"]))
+    np.testing.assert_array_equal(out["3dmm"].numpy(), np.asarray(ref["3dmm"]))
+
+
+def test_port_runs_without_jax():
+    """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's slice
+    runs on the CPU and neither jax nor flax is ever imported."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import numpy as np
+        from dad3dheads_tpu_torch.api import FaceMeshPredictor
+        p = FaceMeshPredictor({"img_size": 64}, device="cpu", seed=1)
+        out = p.predict_batch(np.zeros((2, 64, 64, 3), np.uint8))
+        assert out["3d_vertices"].shape == (2, 5023, 3), out["3d_vertices"].shape
+        assert np.isfinite(out["3d_vertices"]).all()
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+        assert not bad, bad
+        print("NO_JAX_OK")
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "DAD3D_PLATFORM"}
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert proc.returncode == 0 and "NO_JAX_OK" in proc.stdout, proc.stderr[-3000:]
