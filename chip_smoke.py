@@ -1,4 +1,4 @@
-"""Drive the PyTorch + CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch + CUDA port's main paths once on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and the CUDA
 toolkit:
@@ -9,19 +9,39 @@ The hand-written kernels are built from ``dad3dheads_tpu_torch/csrc`` on first
 use. Phases, each of which asserts (any failure exits non-zero):
 
   1. the card's name and power limit, the torch and CUDA versions;
-  2. build the kernels (nvcc), report the build seconds;
-  3. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, with CUDA-event times (median of 20 after warm-up, L2
-     flushed before each launch);
+  2. build the kernels (one nvcc per source, in parallel), report the seconds;
+  3. the normalize and blendshape kernels against their plain PyTorch
+     versions on the card, at the main path's shapes, with CUDA-event times
+     (median of 20 after warm-up, L2 flushed before each launch);
+  3b. the crop/resize/normalize kernel against its plain version: area
+     downscale, linear upscale, resize mode with mixed scales, loose boxes,
+     Hmax 640 and 1088, both layouts, fp32 and bf16, an exact identity crop;
+     timed at B=64 on 1280x720 frames with face boxes;
+  3c. the rasterizer kernel against its plain version: the FLAME mesh at 256²
+     and 512x640, the spherical UV unwrap at 256², a constant-depth mesh;
+     timed at 512x640;
   4. ``FaceMeshPredictor.predict_batch`` (resnet50 DAD-3DNet, 256x256, random
      weights from a seeded generator, randomized BN statistics) on 64 seeded
      uint8 images: shapes, dtypes, finiteness, launch counts of both kernels,
      and agreement with the same weights run on the CPU (plain paths);
+  4b. ``predict_frames`` on 64 seeded frames of mixed sizes up to 1920x1080
+     with whole-frame, interior and loose face boxes, against the CPU on 4 of
+     them; ``predict_images`` on a CUDA uint8 tensor (the device branch);
+  4c. ``PNCCEstimator`` and ``UVTextureCreator`` on a 4b result and its
+     frame, against the CPU;
   5. ``predict_batch`` at B=256, fp32 and bf16 trunk: img/s from CUDA events,
-     median of 5 after warm-up.
+     median of 5 after warm-up;
+  5b. ``predict_frames`` on 256 1280x720 frames in batches of 64, fp32 and
+     bf16 trunk, img/s, median of 5 after warm-up, and the host's share.
 
-The line before the last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+Every launch counter is set to 0 just before the path that owns it is driven
+(4, 4b, 4c) and read just after. The line before the last is a JSON object
+with one entry per kernel: its launches on that path, its largest gap to the
+plain version, its time, the plain version's, a library call's where one
+computes the same function, and its bound on the card (the larger of the
+bytes it must move over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
+the published H100 SXM peaks at 700 W). The last line is
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -34,18 +54,29 @@ import time
 import numpy as np
 import torch
 
+from dad3dheads_tpu_torch import assets
 from dad3dheads_tpu_torch.api import FaceMeshPredictor
 from dad3dheads_tpu_torch.core.flame import FlameModel
+from dad3dheads_tpu_torch.core.head_mesh import HeadMesh
 from dad3dheads_tpu_torch.models import randomize_bn_stats
 from dad3dheads_tpu_torch.ops import cuda_lib
 from dad3dheads_tpu_torch.ops.blendshapes import blend_shapes_fused, blend_shapes_fused_reference
 from dad3dheads_tpu_torch.ops.preprocess import normalize_images, normalize_images_reference
+from dad3dheads_tpu_torch.ops.preprocess_device import frame_scalars, pack_frames_host
+from dad3dheads_tpu_torch.ops.resample import resample_normalize, resample_normalize_reference
+from dad3dheads_tpu_torch.render import PNCCEstimator, UVTextureCreator
+from dad3dheads_tpu_torch.render.rasterizer import rasterize_buffers, rasterize_buffers_reference
+from dad3dheads_tpu_torch.render.uv_texture import spherical_uv_vertices
 
 SEED = 0
 IMG = 256
 SLICE_B = 64
 BENCH_B = 256
+FRAMES_B = 64
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+HBM_BYTES_PER_S = 3.35e12  # published H100 SXM peaks at 700 W
+FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+KERNELS = ("blend_shapes_fused", "normalize_images", "resample_normalize", "rasterize_buffers")
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3, flush: torch.Tensor | None = None) -> float:
@@ -68,6 +99,23 @@ def median_ms(fn, reps: int = 20, warmup: int = 3, flush: torch.Tensor | None = 
     return float(np.median(times))
 
 
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The least time in ms the card could take for this work, and which of
+    bytes or operations sets it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_launches() -> None:
+    for fn in (blend_shapes_fused, normalize_images, resample_normalize, rasterize_buffers):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {fn.__name__: fn.launches
+            for fn in (blend_shapes_fused, normalize_images, resample_normalize, rasterize_buffers)}
+
+
 def phase1_card() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,10 +131,9 @@ def phase2_build() -> None:
     print(f"[build] {path.name}: {seconds:.2f} s compiling (0 = cached)")
 
 
-def phase3_kernels(flame: FlameModel) -> list:
+def phase3_kernels(flame: FlameModel, flush: torch.Tensor) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
     # kernel 2: uint8 normalize
     norm_err = 0.0
@@ -108,6 +155,8 @@ def phase3_kernels(flame: FlameModel) -> list:
     norm_ms = median_ms(lambda: normalize_images(x), flush=flush)
     norm_plain_ms = median_ms(lambda: normalize_images_reference(x), flush=flush)
     print(f"[normalize] {shapes[0]} imagenet: kernel {norm_ms:.4f} ms, plain {norm_plain_ms:.4f} ms")
+    n = x.numel()
+    norm_bound = bound(n * (1 + 4), 2 * n)
 
     # kernel 1: fused blendshapes at the full FLAME width
     blend_err = 0.0
@@ -126,19 +175,233 @@ def phase3_kernels(flame: FlameModel) -> list:
         assert err <= 1e-4 and rel <= 1e-5, (B, err, rel)
         blend_err = max(blend_err, err)
         blend_ms, blend_plain_ms = k_ms, p_ms  # the last, B=256, goes in the summary
-    del flush
-    return [
-        {"name": "blend_shapes_fused", "route": "cuda",
-         "source": "dad3dheads_tpu_torch/csrc/blendshapes.cu",
-         "replaces": "dad3dheads_tpu/ops/blendshapes.py:36",
-         "max_abs_err": blend_err, "ms": blend_ms, "plain_ms": blend_plain_ms,
-         "shape": f"B={BENCH_B}"},
-        {"name": "normalize_images", "route": "cuda",
-         "source": "dad3dheads_tpu_torch/csrc/normalize.cu",
-         "replaces": "dad3dheads_tpu/ops/preprocess_pallas.py:30",
-         "max_abs_err": norm_err, "ms": norm_ms, "plain_ms": norm_plain_ms,
-         "shape": f"{shapes[0]}"},
-    ]
+    # the library call for the same function: one fp32 GEMM with the add
+    # fused, TF32 off (the geometry's precision)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    template_flat = flame.v_template.reshape(1, -1)
+    blend_lib_ms = median_ms(lambda: torch.addmm(template_flat, betas, flame.shapedirs), flush=flush)
+    K, N = flame.shapedirs.shape
+    blend_bound = bound(4 * (BENCH_B * K + K * N + N + BENCH_B * N), 2 * BENCH_B * K * N + BENCH_B * N)
+    print(f"[blendshapes] B={BENCH_B} torch.addmm (fp32, TF32 off): {blend_lib_ms:.4f} ms")
+    return {
+        "blend_shapes_fused": {
+            "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/blendshapes.cu",
+            "replaces": "dad3dheads_tpu/ops/blendshapes.py:36",
+            "max_abs_err": blend_err, "ms": blend_ms, "plain_ms": blend_plain_ms,
+            "bound_ms": blend_bound[0], "bound_by": blend_bound[1], "library_ms": blend_lib_ms,
+            "shape": f"B={BENCH_B} K={K} N={N}"},
+        "normalize_images": {
+            "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/normalize.cu",
+            "replaces": "dad3dheads_tpu/ops/preprocess_pallas.py:30",
+            "max_abs_err": norm_err, "ms": norm_ms, "plain_ms": norm_plain_ms,
+            "bound_ms": norm_bound[0], "bound_by": norm_bound[1], "library_ms": None,
+            "shape": f"{shapes[0]}"},
+    }
+
+
+# --------------------------------------------------------------------------
+# 3b: the crop/resize/normalize kernel
+# --------------------------------------------------------------------------
+
+
+def seeded_frames(rng, sizes) -> list:
+    """uint8 RGB frames of the given (h, w): a smooth gradient plus noise,
+    so that a resample of them is not flat."""
+    frames = []
+    for h, w in sizes:
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = (yy * 97 // max(h, 1) + xx * 131 // max(w, 1))[..., None] + np.array([0, 60, 120])
+        noise = rng.integers(0, 64, (h, w, 3))
+        frames.append(((base + noise) % 256).astype(np.uint8))
+    return frames
+
+
+def face_boxes(rng, sizes) -> list:
+    """Boxes cycling through: the whole frame, a face-sized interior box, a
+    small box (an upscale), a wide flat box (mixed scales in resize mode) and
+    a loose box past the frame."""
+    boxes = []
+    for i, (h, w) in enumerate(sizes):
+        kind = i % 5
+        if kind == 0:
+            boxes.append([0, 0, w, h])
+        elif kind == 1:
+            side = int(min(h, w) * rng.uniform(0.3, 0.6))
+            x0, y0 = int(rng.integers(0, w - side)), int(rng.integers(0, h - side))
+            boxes.append([x0, y0, x0 + side, y0 + side])
+        elif kind == 2:
+            x0, y0 = int(rng.integers(0, w - 90)), int(rng.integers(0, h - 90))
+            boxes.append([x0, y0, x0 + int(rng.integers(40, 90)), y0 + int(rng.integers(40, 90))])
+        elif kind == 3:
+            boxes.append([0, h // 3, w, h // 3 + min(h // 3, 100)])
+        else:
+            boxes.append([-40, -25, w + 60, h + 35])
+    return boxes
+
+
+def resample_work(sizes: torch.Tensor, boxes: torch.Tensor, S: int, out_bytes: int) -> tuple[float, float]:
+    """(bytes, fp32 operations) that these crops need: each crop's uint8 rows
+    read once and the output written once; two operations per tap of the row
+    pass over the crop's columns and of the column pass, two per output
+    element for the normalize."""
+    scalars = frame_scalars(sizes.cpu(), boxes.cpu(), S)[0].numpy().astype(np.float64)
+    n_bytes, ops = float(out_bytes), 0.0
+    for y0, bh, new_h, _, x0, bw, new_w, _, area, _ in scalars:
+        n_bytes += bh * bw * 3
+
+        def taps(crop_len, new_len):
+            if not area:
+                return 2.0 * new_len
+            f = crop_len / max(new_len, 1.0)
+            r = np.arange(new_len)
+            return float(np.sum(np.ceil((r + 1) * f) - np.floor(r * f)))
+
+        ops += 2 * taps(bh, new_h) * 3 * bw + 2 * taps(bw, new_w) * 3 * new_h
+    return n_bytes, ops + 2.0 * out_bytes / 4
+
+
+def phase3b_resample(flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 10)
+    err32 = err16 = 0.0
+    for hmax, wmax in ((640, 480), (1088, 1920)):
+        sizes_hw = [(hmax - 17 * i, wmax - 29 * i) for i in range(10)]
+        frames = seeded_frames(rng, sizes_hw)
+        boxes = face_boxes(rng, sizes_hw)
+        for layout in ("planar", "nhwc"):
+            buf, sizes, packed_boxes = pack_frames_host(frames, boxes, len(frames), planar=layout == "planar")
+            x = torch.from_numpy(buf).to(dev)
+            sz, bb = torch.from_numpy(sizes).to(dev), torch.from_numpy(packed_boxes).to(dev)
+            for mode in ("longest_max_size", "resize"):
+                scalars, scales, paddings = frame_scalars(sz, bb, IMG, mode)
+                cpu = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(packed_boxes), IMG, mode)
+                assert torch.equal(scales.cpu(), cpu[1]) and torch.equal(paddings.cpu(), cpu[2]), mode
+                ref = resample_normalize_reference(x, scalars, IMG)
+                out32 = resample_normalize(x, scalars, IMG)
+                out16 = resample_normalize(x, scalars, IMG, out_dtype=torch.bfloat16)
+                e32 = (out32 - ref).abs().max().item()
+                e16 = (out16.float() - ref).abs().max().item()
+                print(f"[resample] Hmax {hmax} Wmax {wmax} {layout} {mode}: max abs diff fp32 {e32:.3g}, bf16 {e16:.3g}")
+                assert out32.shape == (len(frames), IMG, IMG, 3) and out16.dtype == torch.bfloat16
+                assert e32 <= 1e-4 and e16 <= 3e-2, (hmax, layout, mode, e32, e16)
+                err32, err16 = max(err32, e32), max(err16, e16)
+    # an identity crop resamples with 0/1 weights: exact
+    same = torch.from_numpy(np.stack(seeded_frames(rng, [(IMG, IMG)] * 4))).to(dev)
+    scalars = frame_scalars(torch.full((4, 2), IMG, dtype=torch.int32), torch.tensor([[0, 0, IMG, IMG]] * 4), IMG)[0]
+    assert (scalars == torch.tensor([0, IMG, IMG, 0, 0, IMG, IMG, 0, 0, 0], dtype=torch.int32)).all(), scalars
+    e = (resample_normalize(same, scalars.to(dev), IMG) - normalize_images_reference(same)).abs().max().item()
+    print(f"[resample] identity crop: max abs diff to the normalize {e:.3g}")
+    assert e <= 1e-6, e
+
+    # time it: B=64 frames of 1280x720 with face boxes, planar as predict_frames packs them
+    sizes_hw = [(720, 1280)] * FRAMES_B
+    frames = seeded_frames(rng, sizes_hw[:8]) * (FRAMES_B // 8)
+    boxes = face_boxes(rng, sizes_hw)
+    buf, sizes, packed_boxes = pack_frames_host(frames, boxes, FRAMES_B, planar=True)
+    x = torch.from_numpy(buf).to(dev)
+    scalars = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(packed_boxes), IMG)[0].to(dev)
+    k_ms = median_ms(lambda: resample_normalize(x, scalars, IMG), flush=flush)
+    p_ms = median_ms(lambda: resample_normalize_reference(x, scalars, IMG), flush=flush)
+    n_bytes, ops = resample_work(torch.from_numpy(sizes), torch.from_numpy(packed_boxes), IMG, FRAMES_B * IMG * IMG * 3 * 4)
+    b_ms, b_by = bound(n_bytes, ops)
+    print(f"[resample] B={FRAMES_B} 1280x720 planar, face boxes: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
+    return {"resample_normalize": {
+        "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/resample.cu",
+        "replaces": "dad3dheads_tpu/ops/preprocess_pallas.py:327",
+        "max_abs_err": err32, "max_abs_err_bf16": err16, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"B={FRAMES_B} 720x1280 planar -> {IMG}x{IMG} fp32"}}
+
+
+# --------------------------------------------------------------------------
+# 3c: the rasterizer kernel
+# --------------------------------------------------------------------------
+
+
+def head_params(seed: int = SEED, fill: float = 0.6) -> np.ndarray:
+    """A 3DMM vector whose mesh fills ``fill`` of the image: seeded shape and
+    expression, a small rotation."""
+    rng = np.random.default_rng(seed)
+    mm = np.zeros((1, 413), np.float32)
+    mm[0, :400] = rng.normal(size=400) * 0.5
+    mm[0, 403:409] = [1.0, 0.05, 0.0, -0.05, 1.0, 0.1]
+    mm[0, 409:411] = rng.uniform(-0.1, 0.1, size=2)
+    extent = np.ptp(assets.load_flame_model().v_template[:, :2], axis=0).max()
+    mm[0, 412] = 2.0 * fill / extent - 1.0
+    return mm
+
+
+def raster_work(verts: np.ndarray, faces: np.ndarray, h: int, w: int) -> tuple[float, float]:
+    """(bytes, fp32 operations) of one rasterization: vertices and faces read
+    once, 20 bytes written per pixel; 26 operations per (pixel, triangle)
+    pair whose pixel lies in the triangle's box, clipped to the image."""
+    tri = verts[faces]
+    lo = np.ceil(tri[:, :, :2].min(1))
+    hi = np.floor(tri[:, :, :2].max(1))
+    lo = np.maximum(lo, 0)
+    hi = np.minimum(hi, [w - 1, h - 1])
+    pairs = np.prod(np.clip(hi - lo + 1, 0, None), axis=1).sum()
+    return float(verts.nbytes + faces.nbytes + h * w * 20), 26.0 * float(pairs)
+
+
+def phase3c_raster(flame: FlameModel, flush: torch.Tensor) -> dict:
+    dev = torch.device("cuda")
+    wo_ears = assets.get_flame_indices("faces_wo_ears_remapped").astype(np.int32)
+    all_faces = assets.get_faces().astype(np.int32)
+    cases = {}
+    for h, w in ((256, 256), (512, 640)):
+        hm = HeadMesh(image_size=max(h, w), model=flame)
+        v = hm.reprojected_vertices(torch.from_numpy(head_params()), to_2d=False)[0].clone()
+        v[:, 2] *= -1.0
+        cases[f"flame {h}x{w}"] = (v.cpu().numpy(), wo_ears, h, w)
+    cases["uv spherical 256x256"] = (spherical_uv_vertices(flame.v_template.cpu().numpy(), IMG), all_faces, IMG, IMG)
+    rng = np.random.default_rng(SEED + 20)
+    const = rng.uniform(0, IMG - 1, (180, 3)).astype(np.float32)
+    const[:, 2] = 1.0
+    cases["constant depth 256x256"] = (const, np.arange(180, dtype=np.int32).reshape(60, 3), IMG, IMG)
+    err = 0.0
+    for name, (verts, faces, h, w) in cases.items():
+        vt, ft = torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev)
+        depth, tri_id, bary = rasterize_buffers(vt, ft, h, w)
+        r_depth, r_tri_id, r_bary = rasterize_buffers_reference(vt, ft, h, w)
+        flipped = int((tri_id != r_tri_id).sum().item())
+        same = (tri_id == r_tri_id) & (r_tri_id >= 0)
+        e = max((depth - r_depth)[same].abs().max().item(), (bary - r_bary)[same].abs().max().item())
+        covered = int((r_tri_id >= 0).sum().item())
+        print(f"[rasterize] {name}: {covered} covered pixels, {flipped} with another triangle id, "
+              f"depth/bary max abs diff {e:.3g}")
+        assert flipped == 0 and e <= 1e-4 and covered > 0, (name, flipped, e)
+        err = max(err, e)
+    verts, faces, h, w = cases["flame 512x640"]
+    vt, ft = torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev)
+    k_ms = median_ms(lambda: rasterize_buffers(vt, ft, h, w), flush=flush)
+    p_ms = median_ms(lambda: rasterize_buffers_reference(vt, ft, h, w), reps=5, warmup=1, flush=flush)
+    n_bytes, ops = raster_work(verts, faces, h, w)
+    b_ms, b_by = bound(n_bytes, ops)
+    print(f"[rasterize] flame 512x640 ({len(faces)} faces): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return {"rasterize_buffers": {
+        "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/rasterize.cu",
+        "replaces": "dad3dheads_tpu/render/rasterizer_pallas.py:120",
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None, "shape": f"{len(faces)} faces -> {h}x{w}"}}
+
+
+# --------------------------------------------------------------------------
+# 4, 4b, 4c: the main paths
+# --------------------------------------------------------------------------
+
+
+def compare_predictions(out: list, ref: list, tag: str) -> None:
+    """Card vs CPU, per image: 3DMM and vertices atol 1e-3, projected 0.5 px,
+    points (truncated to ints after the readjustment) within 1 px."""
+    tol = {"3dmm_params": 1e-3, "3d_vertices": 1e-3, "projected_vertices": 0.5, "points": 1.0}
+    for key, atol in tol.items():
+        gap = max(float(np.abs(np.asarray(o[key], np.float64) - np.asarray(r[key], np.float64)).max())
+                  for o, r in zip(out, ref))
+        print(f"[{tag}] card vs cpu {key}: max abs gap {gap:.3g} (atol {atol})")
+        assert gap <= atol, (tag, key, gap)
 
 
 def phase4_slice(config: dict) -> tuple[FaceMeshPredictor, dict]:
@@ -146,15 +409,13 @@ def phase4_slice(config: dict) -> tuple[FaceMeshPredictor, dict]:
     randomize_bn_stats(pred.model, torch.Generator().manual_seed(SEED + 1))
     images = np.random.default_rng(SEED).integers(0, 256, (SLICE_B, IMG, IMG, 3), dtype=np.uint8)
 
-    blend_shapes_fused.launches = 0
-    normalize_images.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = pred.predict_batch(images)
     seconds = time.perf_counter() - t0
-    launches = {"blend_shapes_fused": blend_shapes_fused.launches,
-                "normalize_images": normalize_images.launches}
+    launches = read_launches()
     print(f"[slice] predict_batch B={SLICE_B} (first call) {seconds:.3f} s, launches {launches}")
-    assert all(n >= 1 for n in launches.values()), launches
+    assert launches["blend_shapes_fused"] >= 1 and launches["normalize_images"] >= 1, launches
 
     V = pred.flame.num_vertices
     expect = {"points": (SLICE_B, 68, 2), "projected_vertices": (SLICE_B, V, 2),
@@ -174,7 +435,69 @@ def phase4_slice(config: dict) -> tuple[FaceMeshPredictor, dict]:
     return pred, launches
 
 
-def phase5_throughput(pred: FaceMeshPredictor, config: dict) -> None:
+def phase4b_frames(pred: FaceMeshPredictor, config: dict) -> tuple[list, list, dict]:
+    rng = np.random.default_rng(SEED + 30)
+    sizes_hw = [(512, 640), (1080, 1920), (720, 1280), (480, 854), (1080, 1440), (360, 640), (600, 800),
+                (768, 1024)]
+    sizes_hw = (sizes_hw * (FRAMES_B // len(sizes_hw) + 1))[:FRAMES_B]
+    frames = seeded_frames(rng, sizes_hw)
+    boxes = face_boxes(rng, sizes_hw)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = pred.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"[frames] predict_frames {FRAMES_B} frames up to 1920x1080 (first call) {seconds:.3f} s, "
+          f"launches {launches}")
+    assert launches["resample_normalize"] >= 1 and launches["blend_shapes_fused"] >= 1, launches
+    assert len(out) == FRAMES_B
+    V = pred.flame.num_vertices
+    for o in out:
+        assert o["points"].shape == (68, 2) and o["3dmm_params"].shape == (1, 413)
+        assert o["3d_vertices"].shape == (V, 3) and o["projected_vertices"].shape == (1, V, 2)
+        assert o["3dmm_params"].dtype == np.float32 and o["3d_vertices"].dtype == np.float32
+        assert all(np.isfinite(v).all() for v in o.values())
+
+    cpu = FaceMeshPredictor(config, device="cpu", seed=SEED)
+    cpu.model.load_state_dict(pred.model.state_dict())
+    compare_predictions(out[:4], cpu.predict_frames(frames[:4], bboxes=boxes[:4], batch_size=4), "frames")
+
+    # predict_images on a CUDA uint8 tensor: the device branch, normalize kernel
+    images = torch.from_numpy(rng.integers(0, 256, (2 * FRAMES_B + 3, IMG, IMG, 3), dtype=np.uint8)).cuda()
+    before = normalize_images.launches
+    dev_out = pred.predict_images(images, batch_size=FRAMES_B)
+    print(f"[frames] predict_images on a CUDA tensor {tuple(images.shape)}: "
+          f"{normalize_images.launches - before} normalize launches")
+    assert len(dev_out) == images.shape[0] and normalize_images.launches - before >= 1
+    compare_predictions(dev_out[:4], cpu.predict_images(images[:4].cpu(), batch_size=4), "images")
+    return frames, out, launches
+
+
+def phase4c_render(flame: FlameModel, frame: np.ndarray, pred: dict) -> dict:
+    reset_launches()
+    pncc = PNCCEstimator(HeadMesh(model=flame))(frame, pred)
+    uv = UVTextureCreator(resolution=IMG, head_mesh=HeadMesh(model=flame))(frame, pred)
+    launches = read_launches()
+    print(f"[render] PNCC {pncc.shape}, UV texture {uv.shape}: launches {launches}")
+    assert launches["rasterize_buffers"] >= 1, launches
+    ref_pncc = PNCCEstimator(device="cpu")(frame, pred)
+    ref_uv = UVTextureCreator(resolution=IMG, device="cpu")(frame, pred)
+    # the mesh comes from the FLAME decode on each device, which differ by
+    # float rounding: a pixel on a triangle's edge may change its coverage,
+    # so at most 0.1% of the values may differ by more than one level
+    for name, out, ref in (("pncc", pncc, ref_pncc), ("uv_texture", uv, ref_uv)):
+        assert out.shape == ref.shape and out.dtype == np.uint8, (name, out.shape, out.dtype)
+        gap = np.abs(out.astype(int) - ref.astype(int))
+        far = int((gap > 1).sum())
+        drawn = int((ref != 0).any(-1).sum())
+        print(f"[render] {name} card vs cpu: {far} of {gap.size} values differ by more than one level "
+              f"(max {gap.max()}), {drawn} pixels drawn")
+        assert far <= 1e-3 * gap.size, (name, far)
+    return launches
+
+
+def phase5_throughput(pred: FaceMeshPredictor, config: dict) -> FaceMeshPredictor:
     images = np.random.default_rng(SEED + 2).integers(0, 256, (BENCH_B, IMG, IMG, 3), dtype=np.uint8)
     bf16_config = {**config, "model": {**config["model"], "dtype": "bfloat16"}}
     bf16 = FaceMeshPredictor(bf16_config, device="cuda", seed=SEED)
@@ -186,6 +509,29 @@ def phase5_throughput(pred: FaceMeshPredictor, config: dict) -> None:
         assert all(np.isfinite(v).all() for v in outs[name].values()), name
     gap = float(np.abs(outs["bf16"]["3dmm_params"] - outs["fp32"]["3dmm_params"]).max())
     print(f"[throughput] bf16 vs fp32 3dmm_params max abs gap {gap:.3g}")
+    return bf16
+
+
+def phase5b_frames_throughput(pred: FaceMeshPredictor, bf16: FaceMeshPredictor) -> None:
+    rng = np.random.default_rng(SEED + 40)
+    n = 4 * FRAMES_B
+    sizes_hw = [(720, 1280)] * n
+    frames = seeded_frames(rng, sizes_hw[:16]) * (n // 16)
+    boxes = face_boxes(rng, sizes_hw)
+    for name, p in (("fp32", pred), ("bf16", bf16)):
+        ms = median_ms(lambda: p.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B), reps=5, warmup=1)
+        print(f"[throughput] predict_frames {n} frames 1280x720, batches of {FRAMES_B}, {name}: {ms:.2f} ms, "
+              f"{n / ms * 1e3:.1f} img/s")
+    # the host's part of each batch: pasting the frames into one buffer, in
+    # the planar layout predict_frames uses and in NHWC, which the kernel
+    # reads too
+    for planar in (True, False):
+        t0 = time.perf_counter()
+        for lo in range(0, n, FRAMES_B):
+            pack_frames_host(frames[lo : lo + FRAMES_B], boxes[lo : lo + FRAMES_B], FRAMES_B, planar=planar)
+        pack_ms = (time.perf_counter() - t0) / (n // FRAMES_B) * 1e3
+        print(f"[throughput] pack_frames_host ({'planar' if planar else 'nhwc'}) per batch of {FRAMES_B}: "
+              f"{pack_ms:.2f} ms")
 
 
 def main() -> int:
@@ -196,14 +542,27 @@ def main() -> int:
     phase1_card()
     phase2_build()
     flame = FlameModel.load(device="cuda")
-    kernels = phase3_kernels(flame)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    kernels = phase3_kernels(flame, flush)
+    kernels.update(phase3b_resample(flush))
+    kernels.update(phase3c_raster(flame, flush))
+    del flush
     config = {"img_size": IMG, "model": {"backbone": "resnet50", "dtype": "float32"}}
-    pred, launches = phase4_slice(config)
-    phase5_throughput(pred, config)
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    pred, slice_launches = phase4_slice(config)
+    frames, frame_out, frame_launches = phase4b_frames(pred, config)
+    render_launches = phase4c_render(flame, frames[0], frame_out[0])
+    bf16 = phase5_throughput(pred, config)
+    phase5b_frames_throughput(pred, bf16)
+    # each kernel's launches on the path that serves it
+    path_of = {"blend_shapes_fused": slice_launches, "normalize_images": slice_launches,
+               "resample_normalize": frame_launches, "rasterize_buffers": render_launches}
+    summary = []
+    for name in KERNELS:
+        entry = {"name": name, **kernels[name], "launches": path_of[name][name]}
+        assert entry["launches"] >= 1, entry
+        summary.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -3,16 +3,20 @@
 The JAX package beside it is the reference; every module here mirrors the
 module of the same name there and is held against it by the
 ``tests/test_torch_*.py`` parity tests. This package imports ``torch`` and
-never ``jax`` or ``flax``; from the JAX package it reuses only the numpy-only
-``dad3dheads_tpu.constants`` and ``dad3dheads_tpu.assets``.
+never ``jax``, ``flax`` or anything of the JAX package; ``constants`` and
+``assets`` (with the asset files under ``assets/``) are its own copies.
 
 Layers (bottom-up):
-  core        FLAME decode, rotation, LBS, projection, 68 landmarks (fp32)
+  core        FLAME decode, rotation, LBS, projection, 68 landmarks, HeadMesh
   ops         hand-written Hopper kernels (``csrc/*.cu``) and their plain
-              PyTorch versions: fused blendshapes, uint8 normalize
+              PyTorch versions: fused blendshapes, uint8 normalize, frame
+              crop/resize/normalize
   models      DAD-3DNet (ResNet-50 + BiFPN + heads) as ``nn.Module``s
   weights     flax variables / msgpack checkpoints <-> torch state dict
-  api         FaceMeshPredictor (batch path)
+  render      rasterizer kernel, PNCC, UV texture
+  api         FaceMeshPredictor (predict_batch, predict_frames,
+              predict_images), demo processors
+  cli         predict, demo
 """
 
 __version__ = "0.1.0"

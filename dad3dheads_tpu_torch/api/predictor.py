@@ -1,26 +1,40 @@
 """FaceMeshPredictor: images -> 68 landmarks + FLAME mesh + 3DMM params.
-Port of the batch path of ``dad3dheads_tpu/api/predictor.py``.
+Port of ``dad3dheads_tpu/api/predictor.py``.
 
-``predict_batch`` is the main path: uint8 (B, S, S, 3) images go through the
-normalize kernel, DAD-3DNet, the landmark/3DMM decode and the FLAME decode
-(whose blendshape GEMM is the second kernel), and come back as numpy arrays
-with the JAX predictor's keys, shapes and dtypes. ``__call__`` serves one
-image of any size through the host resize/pad and readjusts the outputs to
-the original image.
+Three bulk entries, each with the JAX predictor's keys, shapes and dtypes:
 
-Weights come from a JAX-package ``.msgpack`` checkpoint, or, without one, from
-a seeded ``torch.Generator`` (random weights, with a warning).
+- ``predict_frames``: full frames + face boxes. The host only pastes the
+  frames into one padded uint8 buffer; crop, resize and normalize run on the
+  device in the resample kernel, then DAD-3DNet, the landmark/3DMM decode and
+  the FLAME decode (the blendshape kernel). The deployment path.
+- ``predict_images``: images of any size, resized on host threads with cv2
+  (or one tensor of network-size images already on the device), normalized by
+  the normalize kernel.
+- ``predict_batch``: pre-sized square uint8 batches, network-frame outputs.
+
+``__call__`` serves one image of any size. The bulk entries keep two batches
+in flight: the next batch is queued on the card before the previous one's
+results are copied back and readjusted on the host.
+
+Weights come from a JAX-package ``.msgpack`` checkpoint: the given path, else
+``~/.dad3d_tpu_checkpoints/dad_3dnet.msgpack`` when it exists, else random
+weights from a seeded ``torch.Generator`` (with a warning, or an error with
+``require_weights``). Not ported yet, and refused: the ``model_url``
+download, ``mesh=`` sharding and int8 (``quant_amax``).
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as cf
 import logging
+import os
 from typing import Any, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
-from dad3dheads_tpu.constants import (
+from ..constants import (
     FLAME_CONSTS,
     OUTPUT_2D_LANDMARKS,
     OUTPUT_3DMM_PARAMS,
@@ -37,9 +51,13 @@ from ..ops.preprocess import (
     readjust_3dmm_np,
     readjust_landmarks_np,
 )
+from ..ops.preprocess_device import pack_frames_host, preprocess_frames_device
 from ..weights import load_checkpoint
 
 logger = logging.getLogger(__name__)
+
+_CKPT_DIR = os.path.join(os.path.expanduser("~"), ".dad3d_tpu_checkpoints")
+_CKPT_FILE = "dad_3dnet.msgpack"
 
 DEFAULT_CONFIG: Dict[str, Any] = {
     "img_size": 256,
@@ -75,8 +93,34 @@ def decode_3dmm_to_mesh(flame: FlameModel, params_3dmm: torch.Tensor, consts, im
     return v, proj[..., :2]
 
 
+def coerce_u8(x: torch.Tensor) -> torch.Tensor:
+    """Float images in 0..255 -> uint8, rounded and clipped as the host path
+    coerces them, so that they take the normalize kernel as uint8 does."""
+    return torch.clamp(torch.round(x.float()), 0, 255).to(torch.uint8)
+
+
 def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+class _Pending:
+    """One batch queued on the device: its packed outputs, copied to the host
+    without blocking, and the event that says the copy is done."""
+
+    def __init__(self, packed: torch.Tensor, count: int, meta: Any):
+        self.count, self.meta = count, meta
+        if packed.device.type == "cuda":
+            self.host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+            self.host.copy_(packed, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host, self.event = packed, None
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 class FaceMeshPredictor:
@@ -87,11 +131,22 @@ class FaceMeshPredictor:
         flame_path: Optional[str] = None,
         device: Union[str, torch.device] = "cuda",
         seed: int = 0,
+        require_weights: bool = False,
+        mesh=None,
     ):
-        """``checkpoint_path``: a JAX-package ``.msgpack`` predictor checkpoint;
-        None initialises random weights from ``torch.Generator`` seeded with
-        ``seed``. ``device``: where the network and the FLAME decode run."""
+        """``checkpoint_path``: a JAX-package ``.msgpack`` predictor checkpoint,
+        which must exist when given. Without one, the cached checkpoint is
+        loaded when present; otherwise the weights are random, drawn from a
+        ``torch.Generator`` seeded with ``seed``, or, with ``require_weights``
+        (the CLIs set it unless --allow-random-weights), the call raises.
+        ``device``: where the network and the FLAME decode run."""
         self.config = {**DEFAULT_CONFIG, **(config or {})}
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (serving sharded over several devices) is not ported yet: ROADMAP queue 1, item 13"
+            )
+        if self.config.get("quant_amax") is not None:
+            raise NotImplementedError("int8 inference (quant_amax) is not ported yet: ROADMAP queue 1, item 7")
         self.device = torch.device(device)
         self._img_size = int(self.config["img_size"])
         self._stride = int(self.config.get("stride", 4))
@@ -100,15 +155,45 @@ class FaceMeshPredictor:
         self.flame = FlameModel.load(flame_path, device=self.device)
 
         self.model = create_model(self.config["model"], torch.Generator().manual_seed(seed))
+        path = self._checkpoint(checkpoint_path, require_weights)
         self.loaded_checkpoint: Optional[str] = None
-        if checkpoint_path is not None:
-            load_checkpoint(self.model, checkpoint_path)
-            self.loaded_checkpoint = checkpoint_path
-            logger.info("loaded predictor checkpoint from %s", checkpoint_path)
+        if path is not None:
+            load_checkpoint(self.model, path)
+            self.loaded_checkpoint = path
+            logger.info("loaded predictor checkpoint from %s", path)
         else:
-            logger.warning("no checkpoint given: using random weights (seed %d)", seed)
+            logger.warning("no checkpoint found: using random weights (seed %d)", seed)
         self.model = self.model.to(self.device).eval()
 
+    # -- weights -----------------------------------------------------------
+    def _checkpoint(self, checkpoint_path: Optional[str], require_weights: bool) -> Optional[str]:
+        """The checkpoint to load, or None for random weights."""
+        if checkpoint_path is not None and not os.path.isfile(checkpoint_path):
+            # a requested checkpoint is never silently replaced by the cache
+            raise FileNotFoundError(
+                f"checkpoint not found: {checkpoint_path}. Train one "
+                "(python -m dad3dheads_tpu.cli.train) or port the reference "
+                "weights (tools/port_torch_weights.py)."
+            )
+        path = checkpoint_path or os.path.join(_CKPT_DIR, _CKPT_FILE)
+        if os.path.isfile(path):
+            return path
+        if self.config.get("model_url"):
+            raise NotImplementedError(
+                f"no checkpoint at {path}, and downloading model_url is not ported "
+                "yet (ROADMAP queue 1, item 4): fetch the file and pass it as the checkpoint"
+            )
+        if require_weights:
+            raise FileNotFoundError(
+                f"no predictor checkpoint at {path}. Train one (python -m "
+                "dad3dheads_tpu.cli.train), port the reference weights "
+                "(tools/port_torch_weights.py --torch model.trcd --out "
+                "dad_3dnet.msgpack), or pass --allow-random-weights to run with "
+                "random weights."
+            )
+        return None
+
+    # -- the device pipeline -----------------------------------------------
     @torch.inference_mode()
     def _run(self, x: torch.Tensor):
         """Normalized or uint8 NHWC batch on the device -> decoded outputs."""
@@ -117,9 +202,43 @@ class FaceMeshPredictor:
         return decode_pipeline_outputs(self.model(x.float()), self._stride, self._img_size)
 
     @torch.inference_mode()
+    def _run_packed(self, x: torch.Tensor) -> torch.Tensor:
+        """As ``_run``, packed into one (B, 136 + 413) fp32 tensor, so that
+        each batch comes back in one copy."""
+        dev = self._run(x)
+        return torch.cat([dev["landmarks"].reshape(x.shape[0], -1), dev["3dmm"].float()], dim=1)
+
+    @torch.inference_mode()
+    def _run_frames(self, frames: torch.Tensor, sizes: torch.Tensor, bboxes: torch.Tensor) -> torch.Tensor:
+        """Padded uint8 frames (planar (B, Hmax, 3*Wmax) or NHWC) + sizes +
+        boxes on the device -> one packed (B, 2 + 4 + 136 + 413) fp32 tensor:
+        the preprocess scales and paddings, then landmarks and 3DMM."""
+        layout = "planar" if frames.ndim == 3 else "nhwc"
+        images, scales, paddings = preprocess_frames_device(
+            frames, sizes, bboxes, self._img_size, "imagenet", self._resize_mode, layout=layout
+        )
+        dev = decode_pipeline_outputs(self.model(images), self._stride, self._img_size)
+        B = frames.shape[0]
+        return torch.cat(
+            [scales, paddings.float(), dev["landmarks"].reshape(B, -1), dev["3dmm"].float()], dim=1
+        )
+
+    @torch.inference_mode()
     def _decode_3dmm(self, params_3dmm: torch.Tensor):
         return decode_3dmm_to_mesh(self.flame, params_3dmm, self.flame_constants, self._img_size)
 
+    def _mesh_results(self, pts, adj: np.ndarray) -> list:
+        """Per-image result dicts for readjusted points and 3DMM rows, with
+        the FLAME decode of the rows on the device."""
+        v3, proj = self._decode_3dmm(torch.from_numpy(np.ascontiguousarray(adj)).to(self.device))
+        v3, proj = _numpy(v3), _numpy(proj)
+        return [
+            {"points": pts[j], "projected_vertices": proj[j : j + 1], "3d_vertices": v3[j],
+             "3dmm_params": adj[j : j + 1]}
+            for j in range(len(adj))
+        ]
+
+    # -- public API --------------------------------------------------------
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:
         """RGB uint8 (H, W, 3) -> prediction dict in original-image coords."""
         tensor, scale, paddings = preprocess_image_np(image, self._img_size, mode=self._resize_mode)
@@ -150,3 +269,177 @@ class FaceMeshPredictor:
             "3d_vertices": _numpy(vertices_3d),
             "3dmm_params": _numpy(dev["3dmm"]),
         }
+
+    def predict_images(
+        self, images, batch_size: int = 32, num_workers: int = 0, with_mesh: bool = True
+    ) -> list:
+        """Bulk prediction: RGB images of any size -> one dict per image in
+        original-image coordinates (the ``__call__`` contract).
+
+        Each image is resized and padded with cv2 on the host (on
+        ``num_workers`` threads when > 1; float images are rounded and clipped
+        to uint8 first); every device call takes a uint8 batch of
+        ``batch_size`` (the last one padded), which the normalize kernel
+        feeds to the network. ``with_mesh=False`` skips the FLAME decode and
+        returns only {"points", "3dmm_params"}.
+
+        ``images`` may instead be one ``torch.Tensor`` of network-size images
+        (N, S, S, 3), uint8 or float 0..255, on the predictor's device: no
+        host preprocessing and no upload; the outputs are in that frame."""
+        if isinstance(images, torch.Tensor):
+            if images.ndim != 4 or tuple(images.shape[1:]) != (self._img_size, self._img_size, 3):
+                raise ValueError(f"expected (N, {self._img_size}, {self._img_size}, 3), got {tuple(images.shape)}")
+            if images.shape[0] == 0:
+                return []
+            x = images.to(self.device)
+            return self._predict_bulk_device(x if x.dtype == torch.uint8 else coerce_u8(x), batch_size, with_mesh)
+        images = list(images)
+        if not images:
+            return []
+
+        def prep(im):
+            if im.dtype != np.uint8:
+                im = np.clip(np.round(im), 0, 255).astype(np.uint8)
+            return preprocess_image_np(im, self._img_size, normalize="none", mode=self._resize_mode)
+
+        if num_workers > 1:
+            with cf.ThreadPoolExecutor(num_workers) as ex:
+                prepped = list(ex.map(prep, images))
+        else:
+            prepped = [prep(im) for im in images]
+
+        lm_cols = 2 * self.model.num_classes
+        results: list = []
+
+        def drain(item: _Pending) -> None:
+            packed = item.result()[: item.count]
+            pts, adj = [], []
+            for j, (scale, pads) in enumerate(item.meta):
+                pts.append(np.reshape(readjust_landmarks_np(packed[j, :lm_cols].reshape(-1, 2), pads, scale), (-1, 2)))
+                adj.append(readjust_3dmm_np(packed[j : j + 1, lm_cols:], pads, scale, self._img_size,
+                                            self.flame_constants))
+            adj = np.concatenate(adj, 0)
+            if with_mesh:
+                results.extend(self._mesh_results(pts, adj))
+            else:
+                results.extend({"points": pts[j], "3dmm_params": adj[j : j + 1]} for j in range(len(adj)))
+
+        pending: collections.deque = collections.deque()
+        for lo in range(0, len(prepped), batch_size):
+            chunk = prepped[lo : lo + batch_size]
+            x = np.stack([t for t, _, _ in chunk])
+            if len(chunk) < batch_size:
+                x = np.concatenate([x, np.repeat(x[-1:], batch_size - len(chunk), 0)])
+            packed = self._run_packed(torch.from_numpy(x).to(self.device))
+            pending.append(_Pending(packed, len(chunk), [(s, p) for _, s, p in chunk]))
+            if len(pending) >= 2:
+                drain(pending.popleft())
+        while pending:
+            drain(pending.popleft())
+        return results
+
+    def _predict_bulk_device(self, images: torch.Tensor, batch_size: int, with_mesh: bool) -> list:
+        """Device-resident uint8 (N, S, S, 3): one packed call per batch, each
+        copied back while the next one runs, then one readjustment with the
+        identity (the inputs are already in the network frame)."""
+        n = images.shape[0]
+        if n % batch_size:
+            images = torch.cat([images, images[-1:].expand(batch_size - n % batch_size, -1, -1, -1)])
+        outs = [_Pending(self._run_packed(images[lo : lo + batch_size].contiguous()), batch_size, None)
+                for lo in range(0, images.shape[0], batch_size)]
+        packed = np.concatenate([o.result() for o in outs])[:n]
+        lm_cols = 2 * self.model.num_classes
+        identity = [0, 0, 0, 0]
+        pts = readjust_landmarks_np(packed[:, :lm_cols].reshape(n, -1, 2), identity, 1.0)
+        adj = readjust_3dmm_np(packed[:, lm_cols:], identity, 1.0, self._img_size, self.flame_constants)
+        if not with_mesh:
+            return [{"points": pts[j], "3dmm_params": adj[j : j + 1]} for j in range(n)]
+        results: list = []
+        for lo in range(0, n, batch_size):
+            results.extend(self._mesh_results(pts[lo : lo + batch_size], adj[lo : lo + batch_size]))
+        return results
+
+    def predict_frames(
+        self,
+        frames,
+        bboxes=None,
+        batch_size: int = 32,
+        with_mesh: bool = True,
+        frame_bucket: int = 64,
+    ) -> list:
+        """Bulk prediction from full frames and optional face boxes, with the
+        preprocess on the device.
+
+        frames: RGB uint8 (H, W, 3) frames of any sizes; each batch is pasted
+        into one channel-planar buffer whose extents round the batch's largest
+        frame up to ``frame_bucket``. bboxes: optional (N, 4) [x0, y0, x1, y1]
+        crop windows, clamped to each frame; the whole frame by default.
+
+        Returns one dict per frame in the ``__call__`` contract, with
+        "points" in full-frame coordinates (the crop origin added back) and
+        "3dmm_params" in the crop's frame, as the reference predictor gives
+        them."""
+        frames = list(frames)
+        if not frames:
+            return []
+        if bboxes is None:
+            bb = [(0, 0, f.shape[1], f.shape[0]) for f in frames]
+        else:
+            bb = []
+            for f, b in zip(frames, bboxes):
+                h, w = f.shape[:2]
+                x0 = int(np.clip(b[0], 0, w - 1))
+                y0 = int(np.clip(b[1], 0, h - 1))
+                bb.append((x0, y0, int(np.clip(b[2], x0 + 1, w)), int(np.clip(b[3], y0 + 1, h))))
+        mm_col = 6 + 2 * self.model.num_classes  # after scales, paddings and landmarks
+        results: list = []
+
+        def drain(item: _Pending) -> None:
+            packed = item.result()
+            pts, adj = [], []
+            for j in range(item.count):
+                scale = packed[j, 0:2]
+                pads = packed[j, 2:6].astype(np.int64).tolist()
+                x0, y0 = item.meta[j][:2]
+                pts.append(readjust_landmarks_np(packed[j, 6:mm_col].reshape(-1, 2), pads, scale)
+                           + np.asarray([[x0, y0]]))
+                adj.append(readjust_3dmm_np(packed[j : j + 1, mm_col:], pads, scale, self._img_size,
+                                            self.flame_constants))
+            adj = np.concatenate(adj, 0)
+            if with_mesh:
+                results.extend(self._mesh_results(pts, adj))
+            else:
+                results.extend({"points": pts[j], "3dmm_params": adj[j : j + 1]} for j in range(len(adj)))
+
+        pending: collections.deque = collections.deque()
+        for lo in range(0, len(frames), batch_size):
+            chunk, boxes = frames[lo : lo + batch_size], bb[lo : lo + batch_size]
+            buf, sizes, packed_boxes = pack_frames_host(chunk, boxes, batch_size, bucket=frame_bucket, planar=True)
+            dev = [torch.from_numpy(a).to(self.device) for a in (buf, sizes, packed_boxes)]
+            pending.append(_Pending(self._run_frames(*dev), len(chunk), boxes))
+            if len(pending) >= 2:
+                drain(pending.popleft())
+        while pending:
+            drain(pending.popleft())
+        return results
+
+    @classmethod
+    def dad_3dnet(cls, checkpoint_path: Optional[str] = None, **kwargs) -> "FaceMeshPredictor":
+        """The flagship predictor."""
+        return cls(DEFAULT_CONFIG, checkpoint_path=checkpoint_path, **kwargs)
+
+    @classmethod
+    def from_yaml(cls, path: str, **kwargs) -> "FaceMeshPredictor":
+        """Build from a predictor config yaml (``configs/dad_3dnet.yaml``); a
+        ``checkpoint`` entry that names no file is ignored, as in the JAX
+        predictor."""
+        import yaml
+
+        with open(path) as f:
+            config = yaml.safe_load(f)
+        ckpt = config.pop("checkpoint", None)
+        if ckpt:
+            ckpt = os.path.expanduser(ckpt)
+            if not os.path.isfile(ckpt):
+                ckpt = None
+        return cls(config, checkpoint_path=ckpt, **kwargs)

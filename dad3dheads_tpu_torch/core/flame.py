@@ -11,8 +11,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from dad3dheads_tpu import assets
-from dad3dheads_tpu.constants import (
+from .. import assets
+from ..constants import (
     EYE_COEFFS,
     FLAME_3DMM_ORDER,
     FLAME_CONSTS,

@@ -10,7 +10,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dad3dheads_tpu import assets
+from .. import assets
 
 from .rotation import rodrigues
 

@@ -1,7 +1,9 @@
-"""Rotation math: 6DoF Gram-Schmidt rotations and axis-angle (Rodrigues),
-batched, fp32. Mirrors ``dad3dheads_tpu/core/rotation.py``."""
+"""Rotation math: 6DoF Gram-Schmidt rotations, axis-angle (Rodrigues) and
+roll/pitch/yaw, batched, fp32. Mirrors ``dad3dheads_tpu/core/rotation.py``."""
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -52,3 +54,33 @@ def rodrigues(aa: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=aa.dtype, device=aa.device)
     outer = axis[..., :, None] * axis[..., None, :]
     return cos * eye + (1.0 - cos) * outer + sin * K
+
+
+class RPY(NamedTuple):
+    roll: torch.Tensor
+    pitch: torch.Tensor
+    yaw: torch.Tensor
+
+
+def mat_to_euler_xyz(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrices -> (..., 3) intrinsic xyz Euler angles
+    (a, b, c) in radians with R = Rz(c) @ Ry(b) @ Rx(a)."""
+    b = torch.arcsin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))
+    a = torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    c = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    return torch.stack([a, b, c], dim=-1)
+
+
+def limit_angle(angle: torch.Tensor, pi: float = 180.0) -> torch.Tensor:
+    """Wrap angles in degrees into (-pi, pi]."""
+    return angle - 2.0 * pi * torch.round(angle / (2.0 * pi))
+
+
+def calculate_rpy(rotation_6dof: torch.Tensor) -> RPY:
+    """(B, 6) or (6,) 6DoF rotation -> roll, pitch, yaw in degrees, each (B,)."""
+    R = rot_mat_from_6dof(torch.atleast_2d(rotation_6dof))
+    ang = torch.rad2deg(mat_to_euler_xyz(R.transpose(-1, -2)))
+    roll = limit_angle(ang[..., 2])
+    pitch = limit_angle(ang[..., 0] - 180.0)
+    yaw = limit_angle(ang[..., 1])
+    return RPY(roll=roll, pitch=pitch, yaw=yaw)

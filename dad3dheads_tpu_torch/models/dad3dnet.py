@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dad3dheads_tpu.constants import (
+from ..constants import (
     OUTPUT_2D_LANDMARKS,
     OUTPUT_3DMM_PARAMS,
     OUTPUT_LANDMARKS_HEATMAP,

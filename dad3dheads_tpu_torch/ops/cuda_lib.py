@@ -1,10 +1,11 @@
 """Build and bind the hand-written CUDA kernels of ``dad3dheads_tpu_torch/csrc``.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into a
-shared library with a plain C interface, which ``ctypes`` loads. The library
-is built on first use into ``dad3dheads_tpu_torch/build/`` (git-ignored) and
-named by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads in milliseconds. Nothing here runs at import time.
+Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own ``nvcc``
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, which ``ctypes`` loads. The library is built
+on first use into ``dad3dheads_tpu_torch/build/`` (git-ignored) and named by a
+hash of the sources and flags, so an edited source rebuilds and an unchanged
+one loads in milliseconds. Nothing here runs at import time.
 
 Every C entry point takes device pointers, int sizes, the device ordinal and a
 ``cudaStream_t``, launches on that stream without synchronising, and returns
@@ -29,7 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "d3d_blend_shapes_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # images, out, B, H, W, scale[3], bias[3], device, stream
     "d3d_normalize_u8": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
+    # frames, scalars, tmp, out, B, Hmax, Wmax, S, planar, out_bf16, scale[3], bias[3], device, stream
+    "d3d_resample_normalize_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
+    # vertices, faces, tris, chunk_box, depth, tri_id, bary, V, T, H, W, device, stream
+    "d3d_rasterize": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -70,20 +75,39 @@ def _nvcc() -> str:
     return found
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with every failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{' '.join(cmd)}\n{err}")
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+
+
 def build() -> tuple[Path, float]:
-    """Compile the kernels unless the library for these sources exists.
-    Returns its path and the seconds spent compiling (0.0 when cached)."""
+    """Compile the kernels unless the library for these sources exists: one
+    ``nvcc`` per source, all at once, then one link. Returns the library's
+    path and the seconds spent compiling (0.0 when cached)."""
     path = library_path()
     if path.is_file():
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, CSRC_DIR.glob("*.cu"))]
+    nvcc = _nvcc()
+    stem = f"{path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sorted(CSRC_DIR.glob("*.cu"))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    _run_all([
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        for src, obj in zip(sorted(CSRC_DIR.glob("*.cu")), objects)
+    ])
+    tmp = BUILD_DIR / f"{stem}.tmp.so"
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, path)  # atomic: a concurrent loader never sees a partial file
     return path, seconds
 

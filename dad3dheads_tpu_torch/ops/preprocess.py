@@ -16,7 +16,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from dad3dheads_tpu.constants import IMAGENET_MEAN, IMAGENET_STD, flame_param_offset
+from ..constants import IMAGENET_MEAN, IMAGENET_STD, flame_param_offset
 
 from . import cuda_lib
 

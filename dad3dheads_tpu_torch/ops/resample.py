@@ -1,0 +1,172 @@
+"""Crop + resize + normalize of uint8 frames: the device preprocess of the
+frames serving path.
+
+Port of ``resample_normalize_pallas`` (``dad3dheads_tpu/ops/preprocess_pallas.py``)
+and of the dense resample of ``dad3dheads_tpu/ops/preprocess_device.py``. On
+CUDA tensors :func:`resample_normalize` launches the hand-written kernel of
+``csrc/resample.cu``; on CPU tensors it runs
+:func:`resample_normalize_reference`, the plain PyTorch version: per-image
+weight matrices from :func:`axis_weights` and two fp32 contractions. There is
+no other dispatch.
+
+The scalar table is (B, 10) int32 [y0, bh, new_h, pad_top, x0, bw, new_w,
+pad_left, use_area, use_exact_area] (see ``preprocess_device.frame_scalars``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cuda_lib
+from .preprocess import normalize_scale_bias
+
+NSCALARS = 10
+
+
+def axis_weights(
+    src_max: int,
+    out_size: int,
+    crop_lo: torch.Tensor,
+    crop_len: torch.Tensor,
+    new_len: torch.Tensor,
+    pad_lo: torch.Tensor,
+    use_area: torch.Tensor,
+    use_exact_area: torch.Tensor,
+) -> torch.Tensor:
+    """(B, out_size, src_max) fp32 resample matrices for one axis; every
+    argument is a (B,) tensor.
+
+    Row y holds the source weights of output pixel y: zero outside the padded
+    window; inside, one of cv2's three schemes, chosen per image: exact
+    INTER_AREA box overlap (both axes shrink), cv2's generic 2-tap area
+    fallback (INTER_AREA with an axis that enlarges), INTER_LINEAR half-pixel
+    taps (upscale). The same fp32 arithmetic, in the same order, as
+    ``_axis_weights`` of the JAX package."""
+    dev = crop_lo.device
+
+    def col(t: torch.Tensor) -> torch.Tensor:
+        return t[:, None, None]
+
+    dst = torch.arange(out_size, dtype=torch.int32, device=dev)[None, :, None]
+    src_f = torch.arange(src_max, dtype=torch.int32, device=dev)[None, None, :].float()
+    r = (dst - col(pad_lo)).float()  # position within the resized crop
+    new_len_f = col(new_len).float()
+    valid = (r >= 0) & (r < new_len_f)
+
+    crop_lo_f = col(crop_lo).float()
+    f = col(crop_len).float() / torch.clamp(new_len_f, min=1.0)
+    hi_idx = col(crop_len).float() - 1.0
+
+    def clip(v: torch.Tensor) -> torch.Tensor:
+        return torch.minimum(torch.clamp(v, min=0.0), hi_idx)
+
+    # exact INTER_AREA: overlap of source pixel [s, s+1) with the box
+    # [lo + r*f, lo + (r+1)*f), normalized by the box length f
+    box_lo = crop_lo_f + r * f
+    box_hi = box_lo + f
+    w_area = torch.clamp(torch.minimum(src_f + 1.0, box_hi) - torch.maximum(src_f, box_lo), min=0.0) / f
+
+    # generic 2-tap area: s0 = floor(r*f); fx = (r+1) - (s0+1)/f; one tap when fx <= 0
+    s0 = torch.floor(r * f)
+    fx = (r + 1.0) - (s0 + 1.0) / f
+    fx = torch.where(fx <= 0.0, torch.zeros_like(fx), fx)
+    g0 = crop_lo_f + clip(s0)
+    g1 = crop_lo_f + clip(s0 + 1.0)
+    w_gen = (1.0 - fx) * (src_f == g0).float() + fx * (src_f == g1).float()
+
+    # INTER_LINEAR: half-pixel source position, two taps, crop-edge clamp
+    pos = r * f + 0.5 * f - 0.5
+    l0 = torch.floor(pos)
+    frac = pos - l0
+    t0 = crop_lo_f + clip(l0)
+    t1 = crop_lo_f + clip(l0 + 1.0)
+    w_lin = (1.0 - frac) * (src_f == t0).float() + frac * (src_f == t1).float()
+
+    w = torch.where(col(use_area), torch.where(col(use_exact_area), w_area, w_gen), w_lin)
+    return torch.where(valid, w, torch.zeros_like(w))
+
+
+def _frame_dims(frames: torch.Tensor) -> tuple[int, int, int, bool]:
+    """(B, Hmax, Wmax, planar) of a planar (B, Hmax, 3*Wmax) or NHWC
+    (B, Hmax, Wmax, 3) uint8 frame buffer."""
+    if frames.ndim == 3:
+        B, Hmax, W3 = frames.shape
+        if W3 % 3:
+            raise ValueError(f"planar frames need a last axis of 3*Wmax, got {tuple(frames.shape)}")
+        return B, Hmax, W3 // 3, True
+    if frames.ndim == 4 and frames.shape[-1] == 3:
+        B, Hmax, Wmax, _ = frames.shape
+        return B, Hmax, Wmax, False
+    raise ValueError(f"expected (B, Hmax, 3*Wmax) or (B, Hmax, Wmax, 3) frames, got {tuple(frames.shape)}")
+
+
+def resample_normalize_reference(
+    frames: torch.Tensor,
+    scalars: torch.Tensor,
+    img_size: int = 256,
+    normalize: str = "imagenet",
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain PyTorch version: dense per-image weight matrices and two fp32
+    contractions, then x*scale + bias; (B, S, S, 3) ``out_dtype``."""
+    B, Hmax, Wmax, planar = _frame_dims(frames)
+    s = scalars.to(device=frames.device, dtype=torch.int32)
+    use_area, use_exact = s[:, 8] != 0, s[:, 9] != 0
+    wy = axis_weights(Hmax, img_size, s[:, 0], s[:, 1], s[:, 2], s[:, 3], use_area, use_exact)
+    wx = axis_weights(Wmax, img_size, s[:, 4], s[:, 5], s[:, 6], s[:, 7], use_area, use_exact)
+    x = frames.reshape(B, Hmax, 3, Wmax).permute(0, 1, 3, 2) if planar else frames
+    x = x.float()
+    out = torch.einsum("byh,bhwc->bywc", wy, x)
+    out = torch.einsum("bxw,bywc->byxc", wx, out)
+    scale, bias = normalize_scale_bias(normalize)
+    out = out * torch.from_numpy(scale).to(out.device) + torch.from_numpy(bias).to(out.device)
+    return out.to(out_dtype)
+
+
+def resample_normalize(
+    frames: torch.Tensor,
+    scalars: torch.Tensor,
+    img_size: int = 256,
+    normalize: str = "imagenet",
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """uint8 frames, channel-planar (B, Hmax, 3*Wmax) or NHWC (B, Hmax, Wmax,
+    3), + (B, 10) int32 scalars -> normalized (B, S, S, 3) ``out_dtype``
+    (float32 or bfloat16), S = ``img_size``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes contiguous tensors on one device and raises on anything else. The
+    scalars must describe crops inside each frame (``frame_scalars`` clamps
+    the boxes so)."""
+    if frames.device.type == "cpu":
+        return resample_normalize_reference(frames, scalars, img_size, normalize, out_dtype)
+    if frames.device.type != "cuda":
+        raise ValueError(f"resample_normalize runs on cpu or cuda tensors, got {frames.device}")
+    B, Hmax, Wmax, planar = _frame_dims(frames)
+    if frames.dtype != torch.uint8:
+        raise ValueError(f"expected uint8 frames, got {frames.dtype}")
+    if scalars.device != frames.device or scalars.dtype != torch.int32 or tuple(scalars.shape) != (B, NSCALARS):
+        raise ValueError(
+            f"scalars: expected int32 ({B}, {NSCALARS}) on {frames.device}, "
+            f"got {scalars.dtype} {tuple(scalars.shape)} on {scalars.device}"
+        )
+    if not (frames.is_contiguous() and scalars.is_contiguous()):
+        raise ValueError("frames and scalars must be contiguous")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    scale, bias = normalize_scale_bias(normalize)
+    S = int(img_size)
+    out = torch.empty((B, S, S, 3), dtype=out_dtype, device=frames.device)
+    tmp = torch.empty((B, S, 3 * Wmax), dtype=torch.float32, device=frames.device)
+    device, stream = cuda_lib.launch_args(frames)
+    code = cuda_lib.library().d3d_resample_normalize_u8(
+        frames.data_ptr(), scalars.data_ptr(), tmp.data_ptr(), out.data_ptr(),
+        B, Hmax, Wmax, S, int(planar), int(out_dtype == torch.bfloat16),
+        *(float(v) for v in scale), *(float(v) for v in bias), device, stream,
+    )
+    cuda_lib.check(code, "d3d_resample_normalize_u8")
+    resample_normalize.launches += 1
+    return out
+
+
+resample_normalize.launches = 0  # kernel launches; the CPU path does not count

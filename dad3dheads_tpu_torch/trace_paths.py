@@ -1,0 +1,131 @@
+"""Where the time goes on the card: one traced call of each bulk entry point,
+device time summed by kernel bucket.
+
+    python -m dad3dheads_tpu_torch.trace_paths [--trace-dir DIR]
+
+Drives ``predict_batch`` (256 uint8 images of 256x256) and ``predict_frames``
+(64 frames of 1280x720 with face boxes, one batch) with the resnet50
+DAD-3DNet at its published widths, random weights from a seeded generator,
+fp32 and bf16 trunk. After 3 warm-up calls, one call of each is traced with
+``torch.profiler``. Prints, per entry point and dtype, the device
+milliseconds of each bucket, the device's busy time (the union of its kernel
+and copy intervals), the call's wall time on the host clock and the idle
+share of that wall. With ``--trace-dir`` it also writes each chrome trace
+there.
+Needs a CUDA card; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from .api import FaceMeshPredictor
+from .models import randomize_bn_stats
+
+# bucket -> substrings of a kernel or copy name (lowercase), first match wins
+BUCKETS = (
+    ("kernel: resample_normalize", ("resample_rows", "resample_cols")),
+    ("kernel: normalize_images", ("normalize_vec16", "normalize_scalar")),
+    ("kernel: blend_shapes_fused", ("blend_shapes_kernel",)),
+    ("memcpy HtoD", ("memcpy htod",)),
+    ("memcpy DtoH", ("memcpy dtoh",)),
+    ("conv (cuDNN/CUTLASS/GEMM, layout transposes)", ("cudnn", "xmma", "cutlass", "gemm", "conv", "sm90_",
+                                                      "nhwctonchw", "nchwtonhwc")),
+    ("batch norm", ("batch_norm", "bn_fw")),
+    ("upsample", ("upsample",)),
+    ("max pool", ("max_pool",)),
+)
+OTHER = "elementwise and other"
+
+
+def bucket_of(name: str) -> str:
+    low = name.lower()
+    for bucket, keys in BUCKETS:
+        if any(k in low for k in keys):
+            return bucket
+    return OTHER
+
+
+def device_events(prof) -> list:
+    """(name, start_us, end_us) of every kernel, copy and memset on the card."""
+    out = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+           if e.device_type == DeviceType.CUDA]
+    if not out:
+        raise RuntimeError("the profiler recorded no device activity on this machine")
+    return out
+
+
+def union_us(intervals) -> float:
+    total, end = 0.0, -np.inf
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def trace(fn, label: str, trace_dir: str | None) -> dict:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = device_events(prof)
+    buckets: dict = {}
+    for name, s, e in events:
+        b = bucket_of(name)
+        buckets[b] = buckets.get(b, 0.0) + (e - s) / 1e3
+    busy_ms = union_us([(s, e) for _, s, e in events]) / 1e3
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(trace_dir, f"{label}.json"))
+    return {"path": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1]))}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--trace-dir", default=None, help="write each chrome trace here")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("trace_paths needs a CUDA device; none is available", file=sys.stderr)
+        return 1
+    rng = np.random.default_rng(args.seed)
+    images = rng.integers(0, 256, (256, 256, 256, 3), dtype=np.uint8)
+    frames = [rng.integers(0, 256, (720, 1280, 3), dtype=np.uint8) for _ in range(8)] * 8
+    boxes = []
+    for _ in frames:
+        side = int(rng.integers(200, 500))
+        x0, y0 = int(rng.integers(0, 1280 - side)), int(rng.integers(0, 720 - side))
+        boxes.append([x0, y0, x0 + side, y0 + side])
+    results = []
+    for dtype in ("float32", "bfloat16"):
+        pred = FaceMeshPredictor({"img_size": 256, "model": {"backbone": "resnet50", "dtype": dtype}},
+                                 device="cuda", seed=args.seed)
+        randomize_bn_stats(pred.model, torch.Generator().manual_seed(args.seed + 1))
+        results.append(trace(lambda: pred.predict_batch(images), f"predict_batch_B256_{dtype}", args.trace_dir))
+        results.append(trace(lambda: pred.predict_frames(frames, bboxes=boxes, batch_size=64),
+                             f"predict_frames_B64_720p_{dtype}", args.trace_dir))
+        del pred
+    for r in results:
+        print(json.dumps(r))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,426 @@
+"""The frames serving path of the port against the JAX package.
+
+``pack_frames_host`` and the scalar table against the JAX functions; the
+device preprocess on CPU tensors (the resample kernel's plain version)
+against the JAX XLA einsum path and the Pallas kernel in interpret mode;
+``predict_frames`` and ``predict_images`` against the JAX predictor on one
+``.msgpack`` checkpoint; the predict CLI end to end on the CPU.
+
+The ``cuda``-marked tests hold the resample kernel against its plain version
+on the card and skip without one. JAX is imported only inside the tests that
+need it, so that on a machine with a card and no JAX they run with
+``python -m pytest --noconftest -m cuda tests/test_torch_frames.py``.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from dad3dheads_tpu_torch.ops.preprocess_device import (
+    frame_scalars,
+    pack_frames_host,
+    preprocess_frames_device,
+    round_half_even_ratio,
+)
+from dad3dheads_tpu_torch.ops.resample import resample_normalize, resample_normalize_reference
+
+S = 64
+MODES = ("longest_max_size", "resize")
+LAYOUTS = ("nhwc", "planar")
+
+
+def random_frames(rng, n, hmax, wmax):
+    """n frames of random sizes in a zero (n, hmax, wmax, 3) buffer, with
+    whole-frame boxes on even rows and strict interior boxes on odd ones."""
+    frames = np.zeros((n, hmax, wmax, 3), np.uint8)
+    sizes, bboxes = [], []
+    for i in range(n):
+        h = int(rng.integers(24, hmax + 1))
+        w = int(rng.integers(24, wmax + 1))
+        frames[i, :h, :w] = (rng.uniform(size=(h, w, 3)) * 255).astype(np.uint8)
+        if i % 2 == 0:
+            bb = [0, 0, w, h]
+        else:
+            x0 = int(rng.integers(0, w // 3))
+            y0 = int(rng.integers(0, h // 3))
+            bb = [x0, y0, int(rng.integers(x0 + 12, w + 1)), int(rng.integers(y0 + 12, h + 1))]
+        sizes.append([h, w])
+        bboxes.append(bb)
+    return frames, np.asarray(sizes, np.int32), np.asarray(bboxes, np.int32)
+
+
+def in_layout(frames, layout):
+    """(B, H, W, 3) -> the same frames in ``layout`` (planar: (B, H, 3W))."""
+    if layout == "nhwc":
+        return frames
+    B, H, W, _ = frames.shape
+    return np.ascontiguousarray(frames.transpose(0, 1, 3, 2).reshape(B, H, 3 * W))
+
+
+def port(frames, sizes, bboxes, **kw):
+    out = preprocess_frames_device(torch.from_numpy(frames), torch.from_numpy(sizes), torch.from_numpy(bboxes), **kw)
+    return [t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy() for t in out]
+
+
+def jax_preprocess(frames, sizes, bboxes, **kw):
+    import jax.numpy as jnp
+
+    from dad3dheads_tpu.ops.preprocess_device import preprocess_frames_device as jax_fn
+
+    return [np.asarray(t, np.float32) if t.dtype == jnp.bfloat16 else np.asarray(t)
+            for t in jax_fn(jnp.asarray(frames), sizes, bboxes, **kw)]
+
+
+# --------------------------------------------------------------------------
+# host packing and the scalar table
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("planar", (False, True))
+@pytest.mark.parametrize("fixed_shape", (None, (160, 200)))
+def test_pack_frames_host_is_byte_identical_to_jax(planar, fixed_shape):
+    from dad3dheads_tpu.ops.preprocess_device import pack_frames_host as jax_pack
+
+    rng = np.random.default_rng(20)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in ((70, 90), (150, 61), (33, 199))]
+    frames.append(rng.uniform(-20, 300, (40, 50, 3)).astype(np.float32))  # coerced to uint8
+    boxes = [[0, 0, 9, 9], [1, 2, 30, 40], [5, 5, 6, 6], [-3, 0, 100, 100]]
+    ref = jax_pack(frames, boxes, 6, bucket=64, planar=planar, fixed_shape=fixed_shape)
+    out = pack_frames_host(frames, boxes, 6, bucket=64, planar=planar, fixed_shape=fixed_shape)
+    for a, b in zip(out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_round_half_even_ratio_and_scalars_match_jax():
+    """The banker's rounding is bit-exact, and so are the scales and paddings
+    that the host readjustment inverts."""
+    import jax.numpy as jnp
+
+    from dad3dheads_tpu.ops.preprocess_device import _round_half_even_ratio
+
+    rng = np.random.default_rng(21)
+    q = rng.integers(1, 4000, 5000).astype(np.int32)
+    p = (rng.integers(0, 4000, 5000) * 2 + rng.integers(0, 2, 5000)).astype(np.int32)
+    p[:100] = q[:100] * 7 + q[:100] // 2  # exact halves
+    ref = np.asarray(_round_half_even_ratio(jnp.asarray(p), jnp.asarray(q)))
+    np.testing.assert_array_equal(round_half_even_ratio(torch.from_numpy(p), torch.from_numpy(q)).numpy(), ref)
+
+    frames, sizes, bboxes = random_frames(rng, 8, 96, 120)
+    for mode in MODES:
+        _, ref_s, ref_p = jax_preprocess(frames, sizes, bboxes, img_size=S, mode=mode, impl="xla")
+        _, scales, paddings = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(bboxes), S, mode)
+        np.testing.assert_array_equal(scales.numpy(), ref_s)
+        np.testing.assert_array_equal(paddings.numpy(), ref_p)
+
+
+# --------------------------------------------------------------------------
+# the plain version against the JAX package
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hmax", (96, 640))
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mode", MODES)
+def test_preprocess_plain_matches_xla(mode, layout, hmax):
+    """atol 1e-4: the same fp32 weights, contracted in another order."""
+    rng = np.random.default_rng(22)
+    frames, sizes, bboxes = random_frames(rng, 6, min(hmax, 600), 96 if hmax > 96 else 120)
+    if hmax > frames.shape[1]:
+        frames = np.concatenate([frames, frames[:, : hmax - frames.shape[1]]], axis=1)
+    x = in_layout(frames, layout)
+    ref = jax_preprocess(x, sizes, bboxes, img_size=S, mode=mode, layout=layout, impl="xla")
+    out = port(x, sizes, bboxes, img_size=S, mode=mode, layout=layout)
+    assert out[0].shape == (6, S, S, 3) and out[0].dtype == np.float32
+    np.testing.assert_allclose(out[0], ref[0], atol=1e-4)
+    np.testing.assert_array_equal(out[1], ref[1])
+    np.testing.assert_array_equal(out[2], ref[2])
+
+
+@pytest.mark.parametrize("hmax", (96, 640))
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("mode", MODES)
+def test_preprocess_plain_matches_pallas_interpret(mode, layout, hmax):
+    """atol 1e-3, the bound of the JAX package's own Pallas-vs-XLA test (its
+    kernel splits each weight into two bf16 parts). Hmax 640 takes the
+    Pallas function's chunked kernel."""
+    rng = np.random.default_rng(23)
+    frames, sizes, bboxes = random_frames(rng, 4, min(hmax, 600), 96 if hmax > 96 else 120)
+    if hmax > frames.shape[1]:
+        frames = np.concatenate([frames, frames[:, : hmax - frames.shape[1]]], axis=1)
+    x = in_layout(frames, layout)
+    ref = jax_preprocess(x, sizes, bboxes, img_size=S, mode=mode, layout=layout, impl="pallas_interpret")
+    out = port(x, sizes, bboxes, img_size=S, mode=mode, layout=layout)
+    assert np.abs(out[0] - ref[0]).max() < 1e-3
+    np.testing.assert_array_equal(out[1], ref[1])
+    np.testing.assert_array_equal(out[2], ref[2])
+
+
+def test_preprocess_identity_crop_is_exact():
+    """A box already at img_size resamples with 0/1 weights: exact."""
+    from dad3dheads_tpu.ops.preprocess import preprocess_image_np
+
+    rng = np.random.default_rng(24)
+    frames = (rng.uniform(size=(2, S, S, 3)) * 255).astype(np.uint8)
+    sizes = np.asarray([[S, S]] * 2, np.int32)
+    bboxes = np.asarray([[0, 0, S, S]] * 2, np.int32)
+    out = port(frames, sizes, bboxes, img_size=S)
+    ref = jax_preprocess(frames, sizes, bboxes, img_size=S, impl="xla")
+    np.testing.assert_allclose(out[0], ref[0], atol=1e-6)
+    np.testing.assert_allclose(out[0][0], preprocess_image_np(frames[0], S)[0], atol=1e-5)
+    assert (out[1] == 1.0).all() and (out[2] == 0).all()
+
+
+def test_preprocess_clamps_loose_boxes():
+    """A box past the frame equals the box clamped to it."""
+    rng = np.random.default_rng(25)
+    frames, sizes, _ = random_frames(rng, 2, 96, 120)
+    (h0, w0), (h1, w1) = sizes
+    loose = np.asarray([[-20, -10, w0 + 50, h0 + 30], [0, 0, 10_000, 10_000]], np.int32)
+    clamped = np.asarray([[0, 0, w0, h0], [0, 0, w1, h1]], np.int32)
+    for a, b in zip(port(frames, sizes, loose, img_size=S), port(frames, sizes, clamped, img_size=S)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_preprocess_bf16_output_within_bf16_rounding(mode):
+    """out_dtype bfloat16 rounds only at the store: within half a bf16 ulp
+    of the fp32 result, and within the JAX bf16 path's 3e-2 of XLA."""
+    rng = np.random.default_rng(26)
+    frames, sizes, bboxes = random_frames(rng, 4, 96, 120)
+    f32 = port(frames, sizes, bboxes, img_size=S, mode=mode)[0]
+    bf16 = port(frames, sizes, bboxes, img_size=S, mode=mode, out_dtype=torch.bfloat16)[0]
+    np.testing.assert_array_equal(bf16, torch.from_numpy(f32).bfloat16().float().numpy())
+    ref = jax_preprocess(frames, sizes, bboxes, img_size=S, mode=mode, impl="xla")[0]
+    assert np.abs(bf16 - ref).max() < 3e-2
+
+
+def test_resample_wrapper_dispatch():
+    """CPU tensors take the plain version and count no launch; other devices
+    are refused."""
+    rng = np.random.default_rng(27)
+    frames, sizes, bboxes = random_frames(rng, 2, 96, 120)
+    scalars, _, _ = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(bboxes), S)
+    before = resample_normalize.launches
+    x = torch.from_numpy(frames)
+    assert torch.equal(resample_normalize(x, scalars, S), resample_normalize_reference(x, scalars, S))
+    assert resample_normalize.launches == before
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        resample_normalize(torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta"), scalars[:1], S)
+
+
+# --------------------------------------------------------------------------
+# the predictor: predict_frames and predict_images against the JAX predictor
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def predictors(tmp_path_factory):
+    from dad3dheads_tpu.api import predictor as jpred
+    from dad3dheads_tpu_torch.api import predictor as tpred
+
+    from .test_torch_predictor import seeded_variables
+
+    path = str(tmp_path_factory.mktemp("ck") / "dad_3dnet.msgpack")
+    jpred.save_predictor_checkpoint(seeded_variables(2), path)
+    config = {"img_size": S}
+    return (
+        jpred.FaceMeshPredictor(config=config, checkpoint_path=path),
+        tpred.FaceMeshPredictor(config=config, checkpoint_path=path, device="cpu"),
+    )
+
+
+def assert_predictions_close(out, ref, with_mesh=True):
+    """3DMM and vertices atol 1e-4, projected 1e-2 px, points within 1 px
+    (they are truncated to ints after the readjustment)."""
+    assert len(out) == len(ref)
+    for o, r in zip(out, ref):
+        assert set(o) == set(r)
+        for key in r:
+            assert np.shape(o[key]) == np.shape(r[key]), key
+        np.testing.assert_allclose(o["3dmm_params"], r["3dmm_params"], atol=1e-4)
+        assert np.abs(np.asarray(o["points"]) - np.asarray(r["points"])).max() <= 1
+        if with_mesh:
+            np.testing.assert_allclose(o["3d_vertices"], r["3d_vertices"], atol=1e-4)
+            np.testing.assert_allclose(o["projected_vertices"], r["projected_vertices"], atol=1e-2)
+
+
+def frame_list(seed):
+    rng = np.random.default_rng(seed)
+    shapes = ((70, 90), (120, 64), (64, 64), (40, 150), (99, 99))
+    return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in shapes]
+
+
+@pytest.mark.parametrize("with_mesh", (True, False))
+def test_predict_frames_matches_jax(predictors, with_mesh):
+    """Five frames in batches of two (two in flight, a padded last batch),
+    whole-frame, interior and loose boxes."""
+    jp, tp = predictors
+    frames = frame_list(30)
+    boxes = [[0, 0, 90, 70], [5, 10, 60, 100], [-10, -10, 500, 500], [20, 3, 120, 39], [30, 30, 31, 31]]
+    ref = jp.predict_frames(frames, bboxes=boxes, batch_size=2, with_mesh=with_mesh)
+    out = tp.predict_frames(frames, bboxes=boxes, batch_size=2, with_mesh=with_mesh)
+    assert_predictions_close(out, ref, with_mesh)
+    assert all(o["points"].dtype == r["points"].dtype for o, r in zip(out, ref))
+
+
+def test_predict_frames_without_boxes_matches_jax(predictors):
+    jp, tp = predictors
+    frames = frame_list(31)[:3]
+    assert_predictions_close(tp.predict_frames(frames, batch_size=4), jp.predict_frames(frames, batch_size=4))
+    assert tp.predict_frames([]) == []
+
+
+@pytest.mark.parametrize("num_workers", (0, 2))
+def test_predict_images_matches_jax(predictors, num_workers):
+    """Host cv2 resize on worker threads, fixed-shape padded batches; a float
+    image is rounded and clipped to uint8 as the JAX predictor does."""
+    jp, tp = predictors
+    images = frame_list(32)
+    images[1] = images[1].astype(np.float32) + 0.4
+    ref = jp.predict_images(images, batch_size=2, num_workers=num_workers)
+    out = tp.predict_images(images, batch_size=2, num_workers=num_workers)
+    assert_predictions_close(out, ref)
+    ref = jp.predict_images(images[:3], batch_size=2, with_mesh=False)
+    out = tp.predict_images(images[:3], batch_size=2, with_mesh=False)
+    assert_predictions_close(out, ref, with_mesh=False)
+
+
+def test_predict_images_device_tensor_matches_jax(predictors):
+    """One tensor of network-size images (N, S, S, 3), uint8 and float: the
+    device branch, readjusted with the identity."""
+    import jax.numpy as jnp
+
+    jp, tp = predictors
+    images = np.random.default_rng(33).integers(0, 256, (5, S, S, 3), dtype=np.uint8)
+    ref = jp.predict_images(jnp.asarray(images), batch_size=2)
+    out = tp.predict_images(torch.from_numpy(images), batch_size=2)
+    assert_predictions_close(out, ref)
+    as_float = torch.from_numpy(images).float() + 0.3
+    assert_predictions_close(tp.predict_images(as_float, batch_size=4, with_mesh=False),
+                             jp.predict_images(jnp.asarray(images), batch_size=4, with_mesh=False), with_mesh=False)
+
+
+def test_predictor_refuses_what_is_not_ported(tmp_path):
+    from dad3dheads_tpu_torch.api import FaceMeshPredictor
+
+    with pytest.raises(FileNotFoundError, match="checkpoint not found"):
+        FaceMeshPredictor({"img_size": S}, checkpoint_path=str(tmp_path / "missing.msgpack"), device="cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        FaceMeshPredictor({"img_size": S, "quant_amax": "amax.npz"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh"):
+        FaceMeshPredictor({"img_size": S}, device="cpu", mesh=object())
+    with pytest.raises(FileNotFoundError, match="allow-random-weights"):
+        FaceMeshPredictor.dad_3dnet(device="cpu", require_weights=True)
+    with pytest.raises(NotImplementedError, match="model_url"):
+        FaceMeshPredictor({"img_size": S, "model_url": "https://example.invalid/ck.msgpack"}, device="cpu")
+    config = tmp_path / "predictor.yaml"
+    config.write_text(f"checkpoint: {tmp_path / 'absent.msgpack'}\nimg_size: {S}\n")
+    pred = FaceMeshPredictor.from_yaml(str(config), device="cpu")
+    assert pred.loaded_checkpoint is None and pred._img_size == S
+
+
+# --------------------------------------------------------------------------
+# the predict CLI on the CPU
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def image_dir(tmp_path_factory):
+    import cv2
+
+    d = tmp_path_factory.mktemp("imgs")
+    for i, (h, w) in enumerate(((80, 100), (96, 72), (64, 64))):
+        img = np.random.default_rng(40 + i).integers(0, 256, (h, w, 3), dtype=np.uint8)
+        cv2.imwrite(str(d / f"img{i}.png"), img)
+    return d
+
+
+@pytest.mark.parametrize("fmt,extra", [("jsonl", []), ("obj", []), ("jsonl", ["--bboxes"]), ("json", ["--device-preprocess"])])
+def test_predict_cli(image_dir, tmp_path, fmt, extra):
+    from dad3dheads_tpu_torch.cli.predict import main
+
+    if extra == ["--bboxes"]:
+        boxes = tmp_path / "boxes.json"
+        boxes.write_text(json.dumps({"img0.png": [10, 5, 90, 75], "img1.png": [-5, -5, 200, 200]}))
+        extra = ["--bboxes", str(boxes)]
+    out = tmp_path / "out"
+    result = main(["--input", str(image_dir), "--output", str(out), "--format", fmt, "--batch", "2",
+                   "--img-size", str(S), "--device", "cpu", "--allow-random-weights", "--dtype", "float32",
+                   *extra])
+    if fmt == "jsonl":
+        lines = [json.loads(line) for line in open(result)]
+        assert [os.path.basename(r["file"]) for r in lines] == ["img0.png", "img1.png", "img2.png"]
+        for r in lines:
+            assert np.asarray(r["points"]).shape == (68, 2) and len(r["3dmm_params"]) == 413
+            assert np.isfinite(r["3dmm_params"]).all()
+    elif fmt == "obj":
+        text = (out / "img0.obj").read_text().splitlines()
+        assert sum(line.startswith("v ") for line in text) == 5023
+        assert sum(line.startswith("f ") for line in text) == 9976
+    else:
+        params = json.loads((out / "img2.json").read_text())
+        assert len(params["shape"]) == 300 and len(params["rotation"]) == 6
+
+
+def test_predict_cli_refuses_missing_weights(image_dir, tmp_path):
+    from dad3dheads_tpu_torch.cli.predict import main
+
+    with pytest.raises(FileNotFoundError):
+        main(["--input", str(image_dir), "--output", str(tmp_path), "--device", "cpu",
+              "--checkpoint", str(tmp_path / "none.msgpack")])
+    with pytest.raises(NotImplementedError, match="int8"):
+        main(["--input", str(image_dir), "--output", str(tmp_path), "--device", "cpu",
+              "--allow-random-weights", "--quant-amax", "amax.npz"])
+
+
+# --------------------------------------------------------------------------
+# the kernel on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hmax,wmax", [(96, 120), (640, 96), (1088, 1920)])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_resample_kernel_matches_plain(cuda, hmax, wmax, layout):
+    """Both modes, fp32 (atol 1e-4) and bf16 (atol 3e-2); scales and
+    paddings identical; one launch per call."""
+    rng = np.random.default_rng(hmax)
+    frames, sizes, bboxes = random_frames(rng, 6, hmax, wmax)
+    bboxes[-1] = [-7, -9, 10_000, 10_000]  # a loose box
+    x = torch.from_numpy(in_layout(frames, layout)).to(cuda)
+    sz, bb = torch.from_numpy(sizes).to(cuda), torch.from_numpy(bboxes).to(cuda)
+    for mode in MODES:
+        scalars, _, _ = frame_scalars(sz, bb, 256, mode)
+        ref = resample_normalize_reference(x, scalars, 256)
+        for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
+            before = resample_normalize.launches
+            out, scales, pads = preprocess_frames_device(x, sz, bb, 256, mode=mode, layout=layout, out_dtype=dtype)
+            assert resample_normalize.launches == before + 1
+            assert out.dtype == dtype and out.shape == (6, 256, 256, 3)
+            assert (out.float() - ref).abs().max().item() <= atol, (mode, dtype)
+            cpu = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(bboxes), 256, mode)
+            assert torch.equal(scales.cpu(), cpu[1]) and torch.equal(pads.cpu(), cpu[2])
+
+
+@pytest.mark.cuda
+def test_resample_kernel_identity_crop_exact(cuda):
+    rng = np.random.default_rng(50)
+    frames = rng.integers(0, 256, (3, 256, 256, 3), dtype=np.uint8)
+    sizes = torch.full((3, 2), 256, dtype=torch.int32)
+    boxes = torch.tensor([[0, 0, 256, 256]] * 3, dtype=torch.int32)
+    for layout in LAYOUTS:
+        x = torch.from_numpy(in_layout(frames, layout))
+        ref = preprocess_frames_device(x, sizes, boxes, 256, layout=layout)[0]
+        out = preprocess_frames_device(x.to(cuda), sizes.to(cuda), boxes.to(cuda), 256, layout=layout)[0]
+        assert (out.cpu() - ref).abs().max().item() <= 1e-6

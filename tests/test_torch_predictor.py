@@ -100,18 +100,25 @@ def test_decode_heatmap_branch_matches_jax():
 
 
 def test_port_runs_without_jax():
-    """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's slice
-    runs on the CPU and neither jax nor flax is ever imported."""
+    """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's batch,
+    frames and render paths run on the CPU, and neither the JAX package nor
+    jax nor flax is ever imported."""
     code = textwrap.dedent(
         """
         import sys
         import numpy as np
         from dad3dheads_tpu_torch.api import FaceMeshPredictor
+        from dad3dheads_tpu_torch.render import PNCCEstimator, UVTextureCreator
         p = FaceMeshPredictor({"img_size": 64}, device="cpu", seed=1)
         out = p.predict_batch(np.zeros((2, 64, 64, 3), np.uint8))
         assert out["3d_vertices"].shape == (2, 5023, 3), out["3d_vertices"].shape
         assert np.isfinite(out["3d_vertices"]).all()
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
+        frame = np.random.default_rng(0).integers(0, 256, (50, 70, 3), dtype=np.uint8)
+        preds = p.predict_frames([frame], bboxes=[[5, 5, 60, 45]])
+        assert preds[0]["3d_vertices"].shape == (5023, 3)
+        assert PNCCEstimator(device="cpu")(frame, preds[0]).shape == frame.shape
+        assert UVTextureCreator(resolution=32, device="cpu")(frame, preds[0]).shape == (32, 32, 3)
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("dad3dheads_tpu", "jax", "jaxlib", "flax"))
         assert not bad, bad
         print("NO_JAX_OK")
         """
@@ -121,3 +128,24 @@ def test_port_runs_without_jax():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0 and "NO_JAX_OK" in proc.stdout, proc.stderr[-3000:]
+
+
+def test_port_constants_and_assets_equal_the_jax_packages():
+    """The port carries its own copies of the constants and asset files."""
+    import filecmp
+
+    from dad3dheads_tpu import assets as jax_assets
+    from dad3dheads_tpu import constants as jax_constants
+    from dad3dheads_tpu_torch import assets, constants
+
+    names = [n for n in vars(jax_constants) if n.isupper()]
+    assert names and names == [n for n in vars(constants) if n.isupper()]
+    for name in names:
+        assert getattr(constants, name) == getattr(jax_constants, name), name
+    for key in constants.FLAME_3DMM_ORDER:
+        assert constants.flame_param_offset(key) == jax_constants.flame_param_offset(key)
+    jax_dir, port_dir = jax_assets._ASSET_DIR, assets._ASSET_DIR
+    files = sorted(os.listdir(jax_dir))
+    assert len(files) == 4 and files == sorted(os.listdir(port_dir))
+    for name in files:
+        assert filecmp.cmp(os.path.join(jax_dir, name), os.path.join(port_dir, name), shallow=False), name
