@@ -21,21 +21,33 @@ use. Phases, each of which asserts (any failure exits non-zero):
      and 512x640, the spherical UV unwrap at 256², a constant-depth mesh;
      timed at 512x640;
   4. ``FaceMeshPredictor.predict_batch`` (resnet50 DAD-3DNet, 256x256, random
-     weights from a seeded generator, randomized BN statistics) on 64 seeded
+     weights in the JAX package's initialisation scheme from a seeded
+     generator, randomized BN statistics) on 64 seeded
      uint8 images: shapes, dtypes, finiteness, launch counts of both kernels,
      and agreement with the same weights run on the CPU (plain paths);
   4b. ``predict_frames`` on 64 seeded frames of mixed sizes up to 1920x1080
      with whole-frame, interior and loose face boxes, against the CPU on 4 of
      them; ``predict_images`` on a CUDA uint8 tensor (the device branch);
-  4c. ``PNCCEstimator`` and ``UVTextureCreator`` on a 4b result and its
-     frame, against the CPU;
+  4c. ``PNCCEstimator`` and ``UVTextureCreator`` on a 4b frame and a seeded
+     head that fills 60% of the mesh's image, against the CPU;
   5. ``predict_batch`` at B=256, fp32 and bf16 trunk: img/s from CUDA events,
      median of 5 after warm-up;
   5b. ``predict_frames`` on 256 1280x720 frames in batches of 64, fp32 and
-     bf16 trunk, img/s, median of 5 after warm-up, and the host's share.
+     bf16 trunk, img/s, median of 5 after warm-up, and the host's share;
+  3d. the blendshape backward kernel against its plain version at B = 7,
+     64 and 128 (d_betas, d_template, d_shapedirs; the same bits on a second
+     launch), timed at the train batch B = 64 against one library call;
+  6. the training path: two train steps on the card and on the CPU from the
+     same seeded weights and batch (fp32, dropout 0, B = 8, 256x256), held
+     to each other; then ``cli.train``'s ``main`` at full width (resnet50,
+     256x256, batch 64, ``--synthetic 4``, one epoch, the repo's
+     ``configs/train.yaml``) to an export that the port's predictor loads;
+     then train-step img/s at B = 64 and 128, fp32 and bf16 trunk, the step
+     without its metric panel (median and range of 5 windows of 3 steps
+     after 5 warm-ups), and the kernels' launches per train step.
 
 Every launch counter is set to 0 just before the path that owns it is driven
-(4, 4b, 4c) and read just after. The line before the last is a JSON object
+(4, 4b, 4c, 6) and read just after. The line before the last is a JSON object
 with one entry per kernel: its launches on that path, its largest gap to the
 plain version, its time, the plain version's, a library call's where one
 computes the same function, and its bound on the card (the larger of the
@@ -47,8 +59,10 @@ the published H100 SXM peaks at 700 W). The last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -60,7 +74,12 @@ from dad3dheads_tpu_torch.core.flame import FlameModel
 from dad3dheads_tpu_torch.core.head_mesh import HeadMesh
 from dad3dheads_tpu_torch.models import randomize_bn_stats
 from dad3dheads_tpu_torch.ops import cuda_lib
-from dad3dheads_tpu_torch.ops.blendshapes import blend_shapes_fused, blend_shapes_fused_reference
+from dad3dheads_tpu_torch.ops.blendshapes import (
+    blend_shapes_fused,
+    blend_shapes_fused_backward,
+    blend_shapes_fused_backward_reference,
+    blend_shapes_fused_reference,
+)
 from dad3dheads_tpu_torch.ops.preprocess import normalize_images, normalize_images_reference
 from dad3dheads_tpu_torch.ops.preprocess_device import frame_scalars, pack_frames_host
 from dad3dheads_tpu_torch.ops.resample import resample_normalize, resample_normalize_reference
@@ -76,7 +95,10 @@ FRAMES_B = 64
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12  # published H100 SXM peaks at 700 W
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
-KERNELS = ("blend_shapes_fused", "normalize_images", "resample_normalize", "rasterize_buffers")
+TRAIN_B = 64  # configs/train_stage/flame_landmarks.yaml
+KERNELS = ("blend_shapes_fused", "normalize_images", "resample_normalize", "rasterize_buffers",
+           "blend_shapes_fused_backward")
+COUNTED = (blend_shapes_fused, normalize_images, resample_normalize, rasterize_buffers, blend_shapes_fused_backward)
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3, flush: torch.Tensor | None = None) -> float:
@@ -107,13 +129,12 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def reset_launches() -> None:
-    for fn in (blend_shapes_fused, normalize_images, resample_normalize, rasterize_buffers):
+    for fn in COUNTED:
         fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {fn.__name__: fn.launches
-            for fn in (blend_shapes_fused, normalize_images, resample_normalize, rasterize_buffers)}
+    return {fn.__name__: fn.launches for fn in COUNTED}
 
 
 def phase1_card() -> None:
@@ -435,7 +456,7 @@ def phase4_slice(config: dict) -> tuple[FaceMeshPredictor, dict]:
     return pred, launches
 
 
-def phase4b_frames(pred: FaceMeshPredictor, config: dict) -> tuple[list, list, dict]:
+def phase4b_frames(pred: FaceMeshPredictor, config: dict) -> tuple[list, dict]:
     rng = np.random.default_rng(SEED + 30)
     sizes_hw = [(512, 640), (1080, 1920), (720, 1280), (480, 854), (1080, 1440), (360, 640), (600, 800),
                 (768, 1024)]
@@ -471,10 +492,13 @@ def phase4b_frames(pred: FaceMeshPredictor, config: dict) -> tuple[list, list, d
           f"{normalize_images.launches - before} normalize launches")
     assert len(dev_out) == images.shape[0] and normalize_images.launches - before >= 1
     compare_predictions(dev_out[:4], cpu.predict_images(images[:4].cpu(), batch_size=4), "images")
-    return frames, out, launches
+    return frames, launches
 
 
-def phase4c_render(flame: FlameModel, frame: np.ndarray, pred: dict) -> dict:
+def phase4c_render(flame: FlameModel, frame: np.ndarray) -> dict:
+    # a random-weight network puts its head outside the frame, so the
+    # renders draw a seeded head that fills 60% of the mesh's image
+    pred = {"3dmm_params": head_params()}
     reset_launches()
     pncc = PNCCEstimator(HeadMesh(model=flame))(frame, pred)
     uv = UVTextureCreator(resolution=IMG, head_mesh=HeadMesh(model=flame))(frame, pred)
@@ -493,7 +517,7 @@ def phase4c_render(flame: FlameModel, frame: np.ndarray, pred: dict) -> dict:
         drawn = int((ref != 0).any(-1).sum())
         print(f"[render] {name} card vs cpu: {far} of {gap.size} values differ by more than one level "
               f"(max {gap.max()}), {drawn} pixels drawn")
-        assert far <= 1e-3 * gap.size, (name, far)
+        assert drawn > 0 and far <= 1e-3 * gap.size, (name, drawn, far)
     return launches
 
 
@@ -534,6 +558,196 @@ def phase5b_frames_throughput(pred: FaceMeshPredictor, bf16: FaceMeshPredictor) 
               f"{pack_ms:.2f} ms")
 
 
+# --------------------------------------------------------------------------
+# 3d: the blendshape backward kernel
+# --------------------------------------------------------------------------
+
+
+def phase3d_blend_backward(flame: FlameModel, flush: torch.Tensor) -> dict:
+    """d_betas, d_template and d_shapedirs against the plain version, each
+    within 1e-5 of its sum of absolute products (fp32 sums in another
+    order); the same bits on a second launch; timed at the train batch."""
+    dev = torch.device("cuda")
+    dirs = flame.shapedirs
+    L, N = dirs.shape
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 50)
+    err = 0.0
+    for B in (7, TRAIN_B, 2 * TRAIN_B):
+        g = torch.randn((B, N), generator=gen).to(dev)
+        betas = torch.randn((B, L), generator=gen).to(dev)
+        out = blend_shapes_fused_backward(g, betas, dirs)
+        again = blend_shapes_fused_backward(g, betas, dirs)
+        ref = blend_shapes_fused_backward_reference(g, betas, dirs)
+        scales = ((g.abs() @ dirs.abs().T).max().item(), (betas.abs().T @ g.abs()).max().item(),
+                  g.abs().sum(0).max().item())
+        for name, o, a, r, scale in zip(("d_betas", "d_shapedirs", "d_template"), out, again, ref, scales):
+            e = (o - r).abs().max().item()
+            print(f"[blend backward] B={B} {name} {tuple(o.shape)}: max abs diff {e:.3g} "
+                  f"(bound 1e-5 x {scale:.3g}), second launch identical {torch.equal(o, a)}")
+            assert o.shape == r.shape and torch.equal(o, a) and e <= 1e-5 * scale, (B, name, e, scale)
+            err = max(err, e)
+
+    # the train step's call: d_betas and d_template at B = 64 (FLAME is a constant)
+    B = TRAIN_B
+    g = torch.randn((B, N), generator=gen).to(dev)
+    betas = torch.randn((B, L), generator=gen).to(dev)
+    needs = (True, False, True)
+    k_ms = median_ms(lambda: blend_shapes_fused_backward(g, betas, dirs, needs), flush=flush)
+    p_ms = median_ms(lambda: blend_shapes_fused_backward_reference(g, betas, dirs, needs), flush=flush)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    lib_ms = median_ms(lambda: (torch.matmul(g, dirs.T), g.sum(0)), flush=flush)
+    all_ms = median_ms(lambda: blend_shapes_fused_backward(g, betas, dirs), flush=flush)
+    b_ms, b_by = bound(4 * (B * N + L * N + B * L + N), 2 * B * L * N + B * N)
+    print(f"[blend backward] B={B} d_betas + d_template: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"torch.matmul + sum (fp32, TF32 off) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"with d_shapedirs {all_ms:.4f} ms")
+    return {"blend_shapes_fused_backward": {
+        "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/blendshapes_bwd.cu",
+        "replaces": "dad3dheads_tpu/ops/blendshapes.py:86",
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "shape": f"g ({B}, {N}) -> d_betas ({B}, {L}) + d_template ({N},)"}}
+
+
+# --------------------------------------------------------------------------
+# 6: the training path
+# --------------------------------------------------------------------------
+
+
+def _train_parity() -> None:
+    """Two train steps on the card and on the CPU from the same seeded
+    weights (the JAX package's initialisation, dropout 0, fp32) and one
+    synthetic batch (B = 8, 256x256), with the config's Adam, clip and
+    warmup. The card runs cuDNN in full fp32 (TF32 off) and
+    deterministically. Tolerances: losses 1e-3 relative; grad_norm 2e-2
+    (this random-init network in train mode amplifies rounding in its
+    gradient; tests/test_torch_train_step.py measures it); the updates' L2
+    gap under 25% of their norm (the bound tests/test_torch_train_step.py
+    holds the port to against JAX); the parameter checksum (their sum)
+    within 5% of the update's L1; BN statistics within 1e-3 of each tensor's
+    largest value."""
+    from dad3dheads_tpu_torch.core import LandmarkEmbedding
+    from dad3dheads_tpu_torch.data.synthetic import synthetic_batch
+    from dad3dheads_tpu_torch.train import build_train_step, init_train_state
+    from dad3dheads_tpu_torch.train.config import load_config
+
+    config = load_config("configs/train.yaml")
+    warmup = int(config["scheduler"]["warmup_steps"])
+    runs = {}
+    batch = synthetic_batch(torch.Generator().manual_seed(SEED + 60), FlameModel.load(), LandmarkEmbedding.load(), 8, IMG)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for device in ("cpu", "cuda"):
+            state = init_train_state({"dropout": 0.0}, config["optimizer"], torch.Generator().manual_seed(SEED + 61),
+                                     device, float(config["gradient_clip_val"]))
+            start = {k: v.detach().clone() for k, v in state.model.named_parameters()}
+            step = build_train_step(img_size=IMG, warmup_steps=warmup)
+            flame = FlameModel.load(device=device)
+            b = {k: v.to(device) for k, v in batch.items()}
+            logs = [{k: float(v) for k, v in step(state, flame, b).items()} for _ in range(2)]
+            delta = {k: (v.detach() - start[k]).cpu() for k, v in state.model.named_parameters()}
+            checksum = sum(float(v.detach().double().sum()) for v in state.model.parameters())
+            stats = {k: v.detach().cpu() for k, v in state.model.state_dict().items() if "running" in k}
+            runs[device] = (logs, delta, checksum, stats)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    (cl, cd, cs, cst), (gl, gd, gs, gst) = runs["cpu"], runs["cuda"]
+    for i, (c, g) in enumerate(zip(cl, gl)):
+        for key in ("loss", "heatmap_loss", "vertices3d_loss", "reprojection_loss", "landmarks_loss", "grad_norm"):
+            rel = abs(g[key] - c[key]) / abs(c[key])
+            tol = 2e-2 if key == "grad_norm" else 1e-3
+            print(f"[train parity] step {i} {key}: card {g[key]:.6f} cpu {c[key]:.6f} (rel {rel:.2e}, tol {tol})")
+            assert rel <= tol, (i, key, g[key], c[key])
+    gap = sum(float(((gd[k] - cd[k]) ** 2).sum()) for k in cd) ** 0.5
+    norm = sum(float((cd[k] ** 2).sum()) for k in cd) ** 0.5
+    stat_gap = max(float((gst[k] - cst[k]).abs().max() / (cst[k].abs().max() + 1e-12)) for k in cst)
+    moved = sum(float(v.abs().sum()) for v in cd.values())
+    print(f"[train parity] parameter updates: L2 gap {gap:.3g} of norm {norm:.3g}; parameter checksum card "
+          f"{gs:.6f} cpu {cs:.6f} (gap <= 5% of the update's L1 {moved:.4g}); BN statistics gap {stat_gap:.2e} "
+          f"of each tensor's largest value")
+    assert norm > 0 and gap <= 0.25 * norm, (gap, norm)
+    assert abs(gs - cs) <= 0.05 * moved and stat_gap <= 1e-3, (gs, cs, moved, stat_gap)
+
+
+def _train_cli() -> dict:
+    """cli.train main at full width to an export the port's predictor loads;
+    the kernels' launches on that run."""
+    from dad3dheads_tpu_torch.cli.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp")
+        reset_launches()
+        t0 = time.perf_counter()
+        train_main(["--config", "configs/train.yaml", "--synthetic", "4", "--device", "cuda",
+                    "max_epochs=1", f"experiment_dir={exp}"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        print(f"[train cli] --synthetic 4, batch {TRAIN_B}, 1 epoch: {seconds:.1f} s, launches {launches}")
+        assert launches["blend_shapes_fused"] >= 1 and launches["blend_shapes_fused_backward"] >= 1, launches
+        ck = os.path.join(exp, "checkpoints")
+        for name in ("last.pt", "dad_3dnet.msgpack"):
+            assert os.path.isfile(os.path.join(ck, name)), name
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            epoch = [json.loads(line) for line in f if "train/loss" in line][-1]
+        print(f"[train cli] epoch 0: train/loss {epoch['train/loss']:.4f}, "
+              f"valid/metrics/reproject_nme_2d {epoch['valid/metrics/reproject_nme_2d']:.4f}")
+        assert all(np.isfinite(v) for v in epoch.values())
+        pred = FaceMeshPredictor({"img_size": IMG}, checkpoint_path=os.path.join(ck, "dad_3dnet.msgpack"),
+                                 device="cuda", require_weights=True)
+        images = np.random.default_rng(SEED + 62).integers(0, 256, (4, IMG, IMG, 3), dtype=np.uint8)
+        out = pred.predict_batch(images)
+        assert all(np.isfinite(v).all() for v in out.values())
+        print(f"[train cli] the port's predictor loads the export: 3dmm {out['3dmm_params'].shape}, finite")
+    return launches
+
+
+def _train_throughput() -> None:
+    """Train-step img/s at B = 64 and 128, fp32 and bf16 trunk, the step
+    alone as bench.py's ``train_step_ips`` times it (no metric panel): after
+    5 warm-up steps, CUDA events around 5 windows of 3 back-to-back steps
+    on a fixed batch; the median window's rate and the slowest and fastest
+    windows'. Then the kernels' launches in one step."""
+    from dad3dheads_tpu_torch.core import LandmarkEmbedding
+    from dad3dheads_tpu_torch.data.synthetic import synthetic_batch
+    from dad3dheads_tpu_torch.train import build_train_step, init_train_state
+
+    flame, emb = FlameModel.load(device="cuda"), LandmarkEmbedding.load(device="cuda")
+    step = build_train_step(img_size=IMG, warmup_steps=400, with_metrics=False)
+    for B in (TRAIN_B, 2 * TRAIN_B):
+        batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(SEED + 63), flame, emb, B, IMG)
+        for dtype in ("float32", "bfloat16"):
+            state = init_train_state({"dtype": dtype}, {"name": "adam", "lr": 1e-4},
+                                     torch.Generator().manual_seed(SEED + 64), "cuda", 5.0)
+
+            def window():
+                for _ in range(3):
+                    step(state, flame, batch)
+
+            for _ in range(5):
+                step(state, flame, batch)
+            ips = sorted(3 * B / ms * 1e3 for ms in (median_ms(window, reps=1, warmup=0) for _ in range(5)))
+            reset_launches()
+            logs = step(state, flame, batch)
+            launches = read_launches()
+            assert np.isfinite(float(logs["loss"])), (B, dtype)
+            print(f"[train throughput] B={B} {dtype}: {ips[2]:.1f} img/s (windows {ips[0]:.1f} to {ips[-1]:.1f}), "
+                  f"{B / ips[2] * 1e3:.2f} ms per step; per step: {launches['blend_shapes_fused']} blendshape, "
+                  f"{launches['blend_shapes_fused_backward']} blendshape backward launches; "
+                  f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            assert launches["blend_shapes_fused"] == 1 and launches["blend_shapes_fused_backward"] == 1, launches
+            del state
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+
+def phase6_train() -> dict:
+    _train_parity()
+    launches = _train_cli()
+    _train_throughput()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -546,16 +760,21 @@ def main() -> int:
     kernels = phase3_kernels(flame, flush)
     kernels.update(phase3b_resample(flush))
     kernels.update(phase3c_raster(flame, flush))
+    kernels.update(phase3d_blend_backward(flame, flush))
     del flush
     config = {"img_size": IMG, "model": {"backbone": "resnet50", "dtype": "float32"}}
     pred, slice_launches = phase4_slice(config)
-    frames, frame_out, frame_launches = phase4b_frames(pred, config)
-    render_launches = phase4c_render(flame, frames[0], frame_out[0])
+    frames, frame_launches = phase4b_frames(pred, config)
+    render_launches = phase4c_render(flame, frames[0])
     bf16 = phase5_throughput(pred, config)
     phase5b_frames_throughput(pred, bf16)
+    del pred, bf16
+    torch.cuda.empty_cache()
+    train_launches = phase6_train()
     # each kernel's launches on the path that serves it
     path_of = {"blend_shapes_fused": slice_launches, "normalize_images": slice_launches,
-               "resample_normalize": frame_launches, "rasterize_buffers": render_launches}
+               "resample_normalize": frame_launches, "rasterize_buffers": render_launches,
+               "blend_shapes_fused_backward": train_launches}
     summary = []
     for name in KERNELS:
         entry = {"name": name, **kernels[name], "launches": path_of[name][name]}

@@ -9,14 +9,18 @@ never ``jax``, ``flax`` or anything of the JAX package; ``constants`` and
 Layers (bottom-up):
   core        FLAME decode, rotation, LBS, projection, 68 landmarks, HeadMesh
   ops         hand-written Hopper kernels (``csrc/*.cu``) and their plain
-              PyTorch versions: fused blendshapes, uint8 normalize, frame
-              crop/resize/normalize
+              PyTorch versions: fused blendshapes and their backward, uint8
+              normalize, frame crop/resize/normalize; the heatmap encoder
   models      DAD-3DNet (ResNet-50 + BiFPN + heads) as ``nn.Module``s
   weights     flax variables / msgpack checkpoints <-> torch state dict
   render      rasterizer kernel, PNCC, UV texture
   api         FaceMeshPredictor (predict_batch, predict_frames,
               predict_images), demo processors
-  cli         predict, demo
+  data        synthetic training batches
+  losses      the four training losses over one shared FLAME decode
+  metrics     NME, failure rates, soft IoU
+  train       config, optimizers, schedulers, state, step, checkpoints, Trainer
+  cli         predict, demo, train
 """
 
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@ from .flame import FlameModel, FlameParams, flame_decode
 from .head_mesh import HeadMesh
 from .landmarks import LandmarkEmbedding, get_68_landmarks
 from .lbs import lbs
-from .projection import weak_perspective_project
+from .projection import heatmap_to_keypoints, normalize_to_cube, weak_perspective_project
 from .rotation import calculate_rpy, rodrigues, rot_mat_from_6dof
 
 __all__ = [
@@ -13,6 +13,8 @@ __all__ = [
     "LandmarkEmbedding",
     "get_68_landmarks",
     "lbs",
+    "heatmap_to_keypoints",
+    "normalize_to_cube",
     "weak_perspective_project",
     "rodrigues",
     "rot_mat_from_6dof",

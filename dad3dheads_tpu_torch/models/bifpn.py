@@ -16,7 +16,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from .resnet import BatchNorm2d
+
 BIFPN_BN_EPS = 4e-5
+BIFPN_BN_MOMENTUM = 0.9997  # torch's convention; the reference's flax momentum 0.0003
 BIFPN_NODES = ("p3_td", "p4_td", "p5_td", "p6_td", "p4_out", "p5_out", "p6_out", "p7_out")
 
 
@@ -52,7 +55,7 @@ class DepthwiseSeparableConvBlock(nn.Module):
         super().__init__()
         self.depthwise = ChannelScale(in_c)
         self.pointwise = nn.Conv2d(in_c, out_c, 1, bias=False)
-        self.bn = nn.BatchNorm2d(out_c, eps=BIFPN_BN_EPS)
+        self.bn = BatchNorm2d(out_c, eps=BIFPN_BN_EPS, momentum=BIFPN_BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.pointwise(self.depthwise(x))))
@@ -64,7 +67,7 @@ class ConvBNBlock(nn.Module):
     def __init__(self, in_c: int, out_c: int, kernel: int = 3, stride: int = 2):
         super().__init__()
         self.conv = nn.Conv2d(in_c, out_c, kernel, stride=stride, padding=kernel // 2)
-        self.bn = nn.BatchNorm2d(out_c, eps=BIFPN_BN_EPS)
+        self.bn = BatchNorm2d(out_c, eps=BIFPN_BN_EPS, momentum=BIFPN_BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.bn(self.conv(x)))

@@ -72,7 +72,8 @@ class FusionLayer(nn.Module):
 
 
 @contextlib.contextmanager
-def _cudnn_tf32_off():
+def cudnn_tf32_off():
+    """cuDNN's fp32 convolutions in full fp32 (its TF32 default off) inside."""
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -112,7 +113,7 @@ class DAD3DNet(nn.Module):
     def _trunk_context(self, device_type: str):
         if self.dtype == torch.bfloat16:
             return torch.autocast(device_type, dtype=torch.bfloat16)
-        return _cudnn_tf32_off()
+        return cudnn_tf32_off()
 
     def neck(self, feats):
         """BiFPN + heatmap head + fusion on the encoder taps (NCHW)."""
@@ -147,8 +148,9 @@ class DAD3DNet(nn.Module):
 
 def create_model(config: Optional[Dict[str, Any]] = None, generator: Optional[torch.Generator] = None) -> DAD3DNet:
     """Build DAD-3DNet from the JAX package's model config keys and
-    initialise its parameters from ``generator`` (a seeded CPU generator gives
-    the same weights on every device; None uses torch's default RNG)."""
+    initialise its parameters with the JAX package's scheme from
+    ``generator`` (a seeded CPU generator gives the same weights on every
+    device; None uses torch's default RNG)."""
     config = config or {}
     backbone = config.get("backbone", "resnet50")
     if backbone != "resnet50":
@@ -169,20 +171,23 @@ def create_model(config: Optional[Dict[str, Any]] = None, generator: Optional[to
 
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: Optional[torch.Generator] = None) -> None:
-    """PyTorch's default init, drawn from ``generator``: conv and linear
-    weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (a 1x1 depthwise
-    scale has fan_in 1); BN identity; BiFPN fusion weights one. The heatmap
-    head's bias starts at zero, as in the reference."""
+    """The JAX package's initialisation (flax's defaults), drawn from
+    ``generator``: conv and dense kernels and the BiFPN depthwise scales
+    lecun_normal (a normal truncated at two standard deviations, std
+    sqrt(1 / fan_in) / 0.8796), biases zero, BN identity, fusion weights one.
+    The numbers differ from flax's (another generator); the distribution is
+    the one the reference trains from."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear, ChannelScale)):
-            bound = 1.0 / (m.weight[0].numel() ** 0.5)
-            m.weight.uniform_(-bound, bound, generator=generator)
+            std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
             if getattr(m, "bias", None) is not None:
-                m.bias.uniform_(-bound, bound, generator=generator)
+                m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
-    if isinstance(model, DAD3DNet):
-        model.head["heatmap"].bias.zero_()
+    for name, p in model.named_parameters():
+        if name.endswith((".w1", ".w2")):
+            p.fill_(1.0)
 
 
 @torch.no_grad()

@@ -18,6 +18,32 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # torch's convention; the reference's flax momentum 0.9
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train-mode forward updates the running
+    variance with the biased batch variance, as flax's ``BatchNorm`` does
+    (torch folds in the unbiased one, n/(n-1) larger). Same parameters,
+    buffers and state-dict keys; eval mode is untouched.
+
+    The batch norm updates a copy of the running variance to
+    (1-m) old + m u, u = b n/(n-1); the flax value (1-m) old + m b is that
+    times (n-1)/n plus (1-m) old / n, a sum of two non-negative terms (no
+    cancellation). The copy keeps the running variance that autograd saved
+    for the backward unmodified."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        self.num_batches_tracked.add_(1)
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True, self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.mul_((1.0 - self.momentum) / n).add_(var, alpha=(n - 1) / n)
+        return y
+
 
 ENCODER_CHANNELS: Dict[str, int] = {
     "layer0": 2048, "layer1": 1024, "layer2": 512, "layer3": 256, "layer4": 64,
@@ -32,7 +58,7 @@ class ConvBN(nn.Module):
     def __init__(self, in_c: int, out_c: int, kernel: int = 3, stride: int = 1, use_relu: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(in_c, out_c, kernel, stride=stride, padding=kernel // 2, bias=False)
-        self.bn = nn.BatchNorm2d(out_c, eps=BN_EPS)
+        self.bn = BatchNorm2d(out_c, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.use_relu = use_relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,36 +1,68 @@
-"""Fused FLAME blendshapes: v_shaped = betas @ shapedirs + v_template.
+"""Fused FLAME blendshapes: v_shaped = betas @ shapedirs + v_template, and
+its gradient.
 
-Port of ``dad3dheads_tpu/ops/blendshapes.py``. On CUDA tensors
-:func:`blend_shapes_fused` launches the hand-written kernel of
-``csrc/blendshapes.cu`` (an exact-fp32 tiled GEMM with the template add fused
-into its epilogue); on CPU tensors it runs :func:`blend_shapes_fused_reference`,
-the plain PyTorch version of the same function. There is no other dispatch.
-
-Forward only: the backward (two fp32 matmuls and a column sum, the JAX
-package's custom VJP) lands with the training port.
+Port of ``dad3dheads_tpu/ops/blendshapes.py`` (the Pallas forward and its
+custom VJP). :func:`blend_shapes_fused` is differentiable: a
+``torch.autograd.Function`` whose forward is :func:`blend_shapes_fused_forward`
+and whose backward is :func:`blend_shapes_fused_backward`. On CUDA tensors
+each launches its hand-written kernel (``csrc/blendshapes.cu``: an exact-fp32
+tiled GEMM with the template add fused; ``csrc/blendshapes_bwd.cu``: a
+deterministic split-K GEMM for d_betas with d_template from the same read of
+the gradient, and a tiled GEMM for d_shapedirs); on CPU tensors each runs its
+plain PyTorch version. There is no other dispatch.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence, Tuple
+
 import torch
 
 from . import cuda_lib
+
+_BWD_TILE = 64  # output tile of the backward kernel (rows of g, rows of dirs)
+_BWD_K_STEP = 16  # its K tile: a split-K chunk is a multiple of this
+_BWD_TARGET_BLOCKS = 4 * 132  # about four blocks per H100 SM
 
 
 def blend_shapes_fused_reference(
     betas: torch.Tensor, shapedirs_flat: torch.Tensor, v_template: torch.Tensor
 ) -> torch.Tensor:
     """Plain PyTorch version: betas (B, L) @ shapedirs (L, V*3) + template
-    (V, 3) -> (B, V, 3), fp32."""
+    (V, 3) -> (B, V, 3), in the dtype of shapedirs (fp32 in the port)."""
     B, V = betas.shape[0], v_template.shape[0]
-    out = torch.matmul(betas.float(), shapedirs_flat) + v_template.reshape(1, -1)
+    out = torch.matmul(betas.to(shapedirs_flat.dtype), shapedirs_flat) + v_template.reshape(1, -1)
     return out.reshape(B, V, 3)
 
 
-def blend_shapes_fused(
+def blend_shapes_fused_backward_reference(
+    g: torch.Tensor,
+    betas: torch.Tensor,
+    shapedirs_flat: torch.Tensor,
+    needs: Sequence[bool] = (True, True, True),
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Plain PyTorch version of the backward: g (B, N) -> (d_betas (B, L),
+    d_shapedirs (L, N), d_template (N,)), each None where ``needs`` says so."""
+    d_betas = torch.matmul(g, shapedirs_flat.T) if needs[0] else None
+    d_dirs = torch.matmul(betas.T, g) if needs[1] else None
+    d_tmpl = g.sum(0) if needs[2] else None
+    return d_betas, d_dirs, d_tmpl
+
+
+def _check(tensors, device: torch.device) -> None:
+    for name, t, shape in tensors:
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def blend_shapes_fused_forward(
     betas: torch.Tensor, shapedirs_flat: torch.Tensor, v_template: torch.Tensor
 ) -> torch.Tensor:
-    """betas (B, L) x shapedirs_flat (L, V*3) + v_template (V, 3) -> (B, V, 3).
+    """The forward alone, (B, L) x (L, V*3) + (V, 3) -> (B, V, 3).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
     takes contiguous fp32 tensors on one device and raises on anything else."""
@@ -38,28 +70,13 @@ def blend_shapes_fused(
         return blend_shapes_fused_reference(betas, shapedirs_flat, v_template)
     if betas.device.type != "cuda":
         raise ValueError(f"blend_shapes_fused runs on cpu or cuda tensors, got {betas.device}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (betas, shapedirs_flat, v_template)
-    ):
-        raise NotImplementedError(
-            "blend_shapes_fused has no CUDA backward yet: it lands with the "
-            "training port. Call it under torch.no_grad() or on detached tensors."
-        )
     B, L = betas.shape
     V = v_template.shape[0]
     N = V * 3
-    for name, t, shape in (
-        ("betas", betas, (B, L)),
-        ("shapedirs_flat", shapedirs_flat, (L, N)),
-        ("v_template", v_template, (V, 3)),
-    ):
-        if t.device != betas.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32 on {betas.device}, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
+    _check(
+        (("betas", betas, (B, L)), ("shapedirs_flat", shapedirs_flat, (L, N)), ("v_template", v_template, (V, 3))),
+        betas.device,
+    )
     out = torch.empty((B, N), dtype=torch.float32, device=betas.device)
     device, stream = cuda_lib.launch_args(betas)
     code = cuda_lib.library().d3d_blend_shapes_f32(
@@ -71,4 +88,82 @@ def blend_shapes_fused(
     return out.reshape(B, V, 3)
 
 
-blend_shapes_fused.launches = 0  # kernel launches; the CPU path does not count
+def split_k_chunk(B: int, L: int, N: int) -> int:
+    """Length of N that one split-K block of the backward covers: enough
+    chunks for about four blocks per SM, a multiple of the kernel's K tile."""
+    tiles = -(-L // _BWD_TILE) * -(-B // _BWD_TILE)
+    chunks = max(1, -(-_BWD_TARGET_BLOCKS // tiles))
+    per_chunk = -(-N // chunks)
+    return -(-per_chunk // _BWD_K_STEP) * _BWD_K_STEP
+
+
+def blend_shapes_fused_backward(
+    g: torch.Tensor,
+    betas: torch.Tensor,
+    shapedirs_flat: torch.Tensor,
+    needs: Sequence[bool] = (True, True, True),
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Gradients of betas @ shapedirs + template given g = dL/dout (B, N):
+    (d_betas (B, L), d_shapedirs (L, N), d_template (N,)), each None where
+    ``needs`` says so.
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel
+    (contiguous fp32 only), which computes d_betas and d_template in every
+    launch and d_shapedirs only when it is asked for; fixed summation order,
+    so the same inputs give the same bits."""
+    if g.device.type == "cpu":
+        return blend_shapes_fused_backward_reference(g, betas, shapedirs_flat, needs)
+    if g.device.type != "cuda":
+        raise ValueError(f"blend_shapes_fused runs on cpu or cuda tensors, got {g.device}")
+    B, N = g.shape
+    L = shapedirs_flat.shape[0]
+    _check(
+        (("g", g, (B, N)), ("betas", betas, (B, L)), ("shapedirs_flat", shapedirs_flat, (L, N))),
+        g.device,
+    )
+    chunk = split_k_chunk(B, L, N)
+    chunks = -(-N // chunk)
+    f32 = dict(dtype=torch.float32, device=g.device)
+    partial = torch.empty((chunks, B, L), **f32)
+    tmpl_partial = torch.empty((-(-B // _BWD_TILE), N), **f32)
+    d_betas = torch.empty((B, L), **f32)
+    d_tmpl = torch.empty((N,), **f32)
+    d_dirs = torch.empty((L, N), **f32) if needs[1] else None
+    device, stream = cuda_lib.launch_args(g)
+    code = cuda_lib.library().d3d_blend_shapes_bwd_f32(
+        g.data_ptr(), shapedirs_flat.data_ptr(), betas.data_ptr(), partial.data_ptr(),
+        tmpl_partial.data_ptr(), d_betas.data_ptr(), d_tmpl.data_ptr(),
+        d_dirs.data_ptr() if d_dirs is not None else None,
+        B, L, N, chunk, device, stream,
+    )
+    cuda_lib.check(code, "d3d_blend_shapes_bwd_f32")
+    blend_shapes_fused_backward.launches += 1
+    return (d_betas if needs[0] else None), d_dirs, (d_tmpl if needs[2] else None)
+
+
+class _BlendShapesFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, betas, shapedirs_flat, v_template):
+        ctx.save_for_backward(betas, shapedirs_flat)
+        return blend_shapes_fused_forward(betas, shapedirs_flat, v_template)
+
+    @staticmethod
+    def backward(ctx, grad):
+        betas, shapedirs_flat = ctx.saved_tensors
+        g = grad.reshape(betas.shape[0], -1).contiguous()
+        d_betas, d_dirs, d_tmpl = blend_shapes_fused_backward(g, betas, shapedirs_flat, ctx.needs_input_grad)
+        return d_betas, d_dirs, (d_tmpl.reshape(-1, 3) if d_tmpl is not None else None)
+
+
+def blend_shapes_fused(
+    betas: torch.Tensor, shapedirs_flat: torch.Tensor, v_template: torch.Tensor
+) -> torch.Tensor:
+    """betas (B, L) x shapedirs_flat (L, V*3) + v_template (V, 3) -> (B, V, 3),
+    differentiable in all three inputs (forward and backward each a kernel on
+    CUDA tensors, the plain version on CPU tensors)."""
+    return _BlendShapesFused.apply(betas, shapedirs_flat, v_template)
+
+
+# kernel launches (one per wrapper call on a CUDA tensor); the CPU path does not count
+blend_shapes_fused.launches = 0
+blend_shapes_fused_backward.launches = 0

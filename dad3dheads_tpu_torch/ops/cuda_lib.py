@@ -38,6 +38,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # betas, dirs, template, out, B, K, N, device, stream
     "d3d_blend_shapes_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # g, dirs, betas, partial, tmpl_partial, d_betas, d_tmpl, d_dirs (or null), B, K, N, chunk, device, stream
+    "d3d_blend_shapes_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # images, out, B, H, W, scale[3], bias[3], device, stream
     "d3d_normalize_u8": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
     # frames, scalars, tmp, out, B, Hmax, Wmax, S, planar, out_bf16, scale[3], bias[3], device, stream

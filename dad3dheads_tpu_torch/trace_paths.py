@@ -3,11 +3,12 @@ device time summed by kernel bucket.
 
     python -m dad3dheads_tpu_torch.trace_paths [--trace-dir DIR]
 
-Drives ``predict_batch`` (256 uint8 images of 256x256) and ``predict_frames``
-(64 frames of 1280x720 with face boxes, one batch) with the resnet50
-DAD-3DNet at its published widths, random weights from a seeded generator,
-fp32 and bf16 trunk. After 3 warm-up calls, one call of each is traced with
-``torch.profiler``. Prints, per entry point and dtype, the device
+Drives ``predict_batch`` (256 uint8 images of 256x256), ``predict_frames``
+(64 frames of 1280x720 with face boxes, one batch) and one train step
+(``build_train_step`` on a synthetic batch of 64 at 256x256, Adam, clip 5)
+with the resnet50 DAD-3DNet at its published widths, random weights from a
+seeded generator, fp32 and bf16 trunk. After 3 warm-up calls, one call of
+each is traced with ``torch.profiler``. Prints, per entry point and dtype, the device
 milliseconds of each bucket, the device's busy time (the union of its kernel
 and copy intervals), the call's wall time on the host clock and the idle
 share of that wall. With ``--trace-dir`` it also writes each chrome trace
@@ -36,6 +37,8 @@ BUCKETS = (
     ("kernel: resample_normalize", ("resample_rows", "resample_cols")),
     ("kernel: normalize_images", ("normalize_vec16", "normalize_scalar")),
     ("kernel: blend_shapes_fused", ("blend_shapes_kernel",)),
+    ("kernel: blend_shapes_fused_backward", ("dbetas_partial_kernel", "dbetas_reduce_kernel", "ddirs_kernel")),
+    ("optimizer (Adam, clip: foreach kernels)", ("multi_tensor_apply", "foreach")),
     ("memcpy HtoD", ("memcpy htod",)),
     ("memcpy DtoH", ("memcpy dtoh",)),
     ("conv (cuDNN/CUTLASS/GEMM, layout transposes)", ("cudnn", "xmma", "cutlass", "gemm", "conv", "sm90_",
@@ -97,6 +100,21 @@ def trace(fn, label: str, trace_dir: str | None) -> dict:
             "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1]))}
 
 
+def trace_train_step(dtype: str, seed: int, trace_dir: str | None) -> dict:
+    """One train step at B = 64, 256x256, the config's optimizer settings,
+    without the metric panel (as ``chip_smoke.py`` times it)."""
+    from .core import FlameModel, LandmarkEmbedding
+    from .data.synthetic import synthetic_batch
+    from .train import build_train_step, init_train_state
+
+    flame, emb = FlameModel.load(device="cuda"), LandmarkEmbedding.load(device="cuda")
+    batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(seed), flame, emb, 64, 256)
+    state = init_train_state({"dtype": dtype}, {"name": "adam", "lr": 1e-4}, torch.Generator().manual_seed(seed),
+                             "cuda", 5.0)
+    step = build_train_step(img_size=256, warmup_steps=400, with_metrics=False)
+    return trace(lambda: step(state, flame, batch), f"train_step_B64_{dtype}", trace_dir)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--trace-dir", default=None, help="write each chrome trace here")
@@ -122,6 +140,7 @@ def main(argv=None) -> int:
         results.append(trace(lambda: pred.predict_frames(frames, bboxes=boxes, batch_size=64),
                              f"predict_frames_B64_720p_{dtype}", args.trace_dir))
         del pred
+        results.append(trace_train_step(dtype, args.seed, args.trace_dir))
     for r in results:
         print(json.dumps(r))
     return 0

@@ -183,3 +183,90 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
     """Load a JAX-package ``.msgpack`` predictor checkpoint into ``model``."""
     model.load_state_dict(state_dict_from_flax(load_flax_msgpack(path)), strict=True)
+
+
+def _ndarray_to_ext(arr: np.ndarray) -> bytes:
+    """flax's ndarray msgpack ext payload (the inverse of _ndarray_from_ext)."""
+    import msgpack
+
+    arr = np.ascontiguousarray(arr)
+    return msgpack.packb((arr.shape, arr.dtype.name, arr.tobytes("C")), use_bin_type=True)
+
+
+def save_flax_msgpack(variables: Dict[str, Any], path: str) -> str:
+    """Write nested dicts of numpy arrays as flax's ``serialization.to_bytes``
+    does, so that the JAX package's loaders (``serialization.from_bytes``)
+    and :func:`load_flax_msgpack` both read the file."""
+    import msgpack
+
+    ext_ndarray = 1  # flax's _MsgpackExtType.ndarray
+
+    def default(x):
+        if isinstance(x, np.ndarray):
+            return msgpack.ExtType(ext_ndarray, _ndarray_to_ext(x))
+        raise TypeError(f"cannot serialize {type(x)}")
+
+    data = msgpack.packb(variables, default=default, strict_types=True)
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
+
+
+# -- training state ----------------------------------------------------------
+# optax's Adam keeps ``mu``/``nu`` trees shaped like ``params`` and one
+# ``count``; torch.optim.Adam keeps, per parameter in ``model.parameters()``
+# order, ``exp_avg``/``exp_avg_sq`` in the parameter's own layout and a
+# float ``step``. Same update: mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps).
+
+
+def _param_paths(model: torch.nn.Module) -> list:
+    """(flax path under ``params/``, layout kind) of each parameter, in
+    ``model.parameters()`` order."""
+    by_key = {key: (path, kind) for path, (key, kind) in name_map().items() if path.startswith("params/")}
+    return [by_key[name] for name, _ in model.named_parameters()]
+
+
+def adam_state_from_flax(mu: Dict[str, Any], nu: Dict[str, Any], count, model: torch.nn.Module) -> Dict[int, Dict[str, torch.Tensor]]:
+    """optax ``ScaleByAdamState`` (mu, nu: trees like ``params``; count) ->
+    the ``state`` part of a ``torch.optim.Adam`` state dict for ``model``."""
+    flat_mu, flat_nu = _flatten({"params": mu}), _flatten({"params": nu})
+    step = torch.tensor(float(np.asarray(count)))
+    state = {}
+    for i, (path, kind) in enumerate(_param_paths(model)):
+        state[i] = {
+            "step": step.clone(),
+            "exp_avg": torch.tensor(np.ascontiguousarray(_to_torch_layout(np.asarray(flat_mu[path], np.float32), kind))),
+            "exp_avg_sq": torch.tensor(np.ascontiguousarray(_to_torch_layout(np.asarray(flat_nu[path], np.float32), kind))),
+        }
+    return state
+
+
+def flax_adam_state_from_port(state: Dict[int, Dict[str, torch.Tensor]], model: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse: a ``torch.optim.Adam`` state (by parameter index) ->
+    {"mu": tree, "nu": tree, "count": int} in the layout of flax ``params``."""
+    out: Dict[str, Any] = {"mu": {}, "nu": {}}
+    count = 0
+    for i, (path, kind) in enumerate(_param_paths(model)):
+        count = int(state[i]["step"])
+        for name, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            node = out[name]
+            *parents, leaf = path.split("/")[1:]
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = np.ascontiguousarray(_to_flax_layout(state[i][key].detach().cpu().numpy(), kind))
+    out["count"] = count
+    return out
+
+
+def train_state_from_flax(
+    variables: Dict[str, Any], adam: Dict[str, Any], model: torch.nn.Module, optimizer: torch.optim.Optimizer
+) -> None:
+    """Load the JAX package's train state, as numpy trees, into the port:
+    ``variables`` {"params", "batch_stats"} into ``model``, and ``adam``
+    {"mu", "nu", "count"} (the ``ScaleByAdamState`` inside its
+    clip_by_global_norm chain) into ``optimizer``, a ``torch.optim.Adam``
+    over ``model.parameters()``."""
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    state = adam_state_from_flax(adam["mu"], adam["nu"], adam["count"], model)
+    # load_state_dict moves the moments to each parameter's device
+    optimizer.load_state_dict({"state": state, "param_groups": optimizer.state_dict()["param_groups"]})

@@ -101,14 +101,17 @@ def test_decode_heatmap_branch_matches_jax():
 
 def test_port_runs_without_jax():
     """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's batch,
-    frames and render paths run on the CPU, and neither the JAX package nor
-    jax nor flax is ever imported."""
+    frames and render paths run on the CPU, its training modules import, and
+    neither the JAX package nor jax, flax or optax is ever imported (the
+    training CLI runs so in tests/test_torch_train_cli.py)."""
     code = textwrap.dedent(
         """
         import sys
         import numpy as np
         from dad3dheads_tpu_torch.api import FaceMeshPredictor
         from dad3dheads_tpu_torch.render import PNCCEstimator, UVTextureCreator
+        import dad3dheads_tpu_torch.cli.train
+        import dad3dheads_tpu_torch.train
         p = FaceMeshPredictor({"img_size": 64}, device="cpu", seed=1)
         out = p.predict_batch(np.zeros((2, 64, 64, 3), np.uint8))
         assert out["3d_vertices"].shape == (2, 5023, 3), out["3d_vertices"].shape
@@ -118,7 +121,7 @@ def test_port_runs_without_jax():
         assert preds[0]["3d_vertices"].shape == (5023, 3)
         assert PNCCEstimator(device="cpu")(frame, preds[0]).shape == frame.shape
         assert UVTextureCreator(resolution=32, device="cpu")(frame, preds[0]).shape == (32, 32, 3)
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("dad3dheads_tpu", "jax", "jaxlib", "flax"))
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("dad3dheads_tpu", "jax", "jaxlib", "flax", "optax"))
         assert not bad, bad
         print("NO_JAX_OK")
         """
