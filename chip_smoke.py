@@ -9,10 +9,18 @@ The hand-written kernels are built from ``dad3dheads_tpu_torch/csrc`` on first
 use. Phases, each of which asserts (any failure exits non-zero):
 
   1. the card's name and power limit, the torch and CUDA versions;
-  2. build the kernels (one nvcc per source, in parallel), report the seconds;
+  2. build the kernels (one nvcc per source, in parallel), report the seconds
+     and the blendshape kernels' registers, shared memory and spills;
   3. the normalize and blendshape kernels against their plain PyTorch
      versions on the card, at the main path's shapes, with CUDA-event times
-     (median of 20 after warm-up, L2 flushed before each launch);
+     (median of 20 after warm-up, L2 flushed before each launch; each
+     kernel and library call timed twice, queued behind a spin of the card
+     so that the time is the card's, and without the spin, so that the
+     host's dispatch counts where it outlasts the flush:
+     ``dad3dheads_tpu_torch/kernel_timing.py``); the blendshape forward at
+     B = 1, 7, 64, 256 and 257 (each configuration of its row tile, and a
+     ragged last one), timed against ``torch.addmm`` at the train batch 64
+     and the inference batch 256;
   3b. the crop/resize/normalize kernel against its plain version: area
      downscale, linear upscale, resize mode with mixed scales, loose boxes,
      Hmax 640 and 1088, both layouts, fp32 and bf16, an exact identity crop;
@@ -49,10 +57,14 @@ use. Phases, each of which asserts (any failure exits non-zero):
 Every launch counter is set to 0 just before the path that owns it is driven
 (4, 4b, 4c, 6) and read just after. The line before the last is a JSON object
 with one entry per kernel: its launches on that path, its largest gap to the
-plain version, its time, the plain version's, a library call's where one
-computes the same function, and its bound on the card (the larger of the
-bytes it must move over 3.35 TB/s and its fp32 operations over 67 TFLOP/s,
-the published H100 SXM peaks at 700 W). The last line is
+plain version, its time on the card and with the host's dispatch
+(``ms_host``), the plain version's, a library call's where one computes the
+same function (both ways), and its bound on the card: the larger of the
+bytes it must move over 3.35 TB/s and its operations over the peak of the
+unit that runs them (the published H100 SXM peaks at 700 W): 67 TFLOP/s for
+fp32 outside the tensor cores, 495 TFLOP/s of TF32 for the blendshape pair,
+whose 3xTF32 scheme issues three tensor-core products for each fp32 one. The
+last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
@@ -72,6 +84,7 @@ from dad3dheads_tpu_torch import assets
 from dad3dheads_tpu_torch.api import FaceMeshPredictor
 from dad3dheads_tpu_torch.core.flame import FlameModel
 from dad3dheads_tpu_torch.core.head_mesh import HeadMesh
+from dad3dheads_tpu_torch.kernel_timing import L2_FLUSH_BYTES, kernel_ms, median_ms
 from dad3dheads_tpu_torch.models import randomize_bn_stats
 from dad3dheads_tpu_torch.ops import cuda_lib
 from dad3dheads_tpu_torch.ops.blendshapes import (
@@ -92,40 +105,28 @@ IMG = 256
 SLICE_B = 64
 BENCH_B = 256
 FRAMES_B = 64
-L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 HBM_BYTES_PER_S = 3.35e12  # published H100 SXM peaks at 700 W
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
+TF32X3 = 3  # tensor-core products per fp32 product in the blendshape kernels (csrc/tf32x3.cuh)
 TRAIN_B = 64  # configs/train_stage/flame_landmarks.yaml
 KERNELS = ("blend_shapes_fused", "normalize_images", "resample_normalize", "rasterize_buffers",
            "blend_shapes_fused_backward")
 COUNTED = (blend_shapes_fused, normalize_images, resample_normalize, rasterize_buffers, blend_shapes_fused_backward)
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3, flush: torch.Tensor | None = None) -> float:
-    """Median CUDA-event time of one call of ``fn``; ``flush`` is overwritten
-    before each timed call so that the call finds a cold L2."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        if flush is not None:
-            flush.zero_()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float, flops: float = FP32_FLOPS) -> tuple[float, str]:
     """The least time in ms the card could take for this work, and which of
-    bytes or operations sets it."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / FP32_FLOPS * 1e3
+    bytes or operations (at ``flops`` a second) sets it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def blend_bounds(n_bytes: float, n_mac: float) -> tuple[tuple[float, str], float]:
+    """A blendshape kernel's bound on the tensor cores (three TF32 products
+    per multiply-add, each two operations) and, for comparison, the fp32
+    bound of the same work outside them."""
+    return bound(n_bytes, TF32X3 * 2 * n_mac, TF32_FLOPS), bound(n_bytes, 2 * n_mac)[0]
 
 
 def reset_launches() -> None:
@@ -150,6 +151,16 @@ def phase2_build() -> None:
     path, seconds = cuda_lib.build()
     cuda_lib.library()
     print(f"[build] {path.name}: {seconds:.2f} s compiling (0 = cached)")
+    # the compiler's report for the blendshape kernels: entry, registers,
+    # static shared memory, spills (the cp.async rings are dynamic shared
+    # memory, sized in the sources)
+    source = None
+    for line in cuda_lib.build_log_path().read_text().splitlines():
+        if line.startswith("== "):
+            source = line[3:]
+        elif source in ("blendshapes.cu", "blendshapes_bwd.cu") and (
+                "Compiling entry" in line or "Used" in line or "spill" in line):
+            print(f"[build] {source}: {line.strip()}")
 
 
 def phase3_kernels(flame: FlameModel, flush: torch.Tensor) -> dict:
@@ -173,49 +184,58 @@ def phase3_kernels(flame: FlameModel, flush: torch.Tensor) -> dict:
     assert err <= 1e-6, err
     norm_err = max(norm_err, err)
     x = torch.randint(0, 256, shapes[0], generator=gen, dtype=torch.uint8).to(dev)
-    norm_ms = median_ms(lambda: normalize_images(x), flush=flush)
-    norm_plain_ms = median_ms(lambda: normalize_images_reference(x), flush=flush)
-    print(f"[normalize] {shapes[0]} imagenet: kernel {norm_ms:.4f} ms, plain {norm_plain_ms:.4f} ms")
+    norm_ms, norm_host_ms = kernel_ms(lambda: normalize_images(x), flush)
+    norm_plain_ms = median_ms(lambda: normalize_images_reference(x), flush=flush, spin=True)
+    print(f"[normalize] {shapes[0]} imagenet: kernel {norm_ms:.4f} ms ({norm_host_ms:.4f} with the host's "
+          f"dispatch), plain {norm_plain_ms:.4f} ms")
     n = x.numel()
     norm_bound = bound(n * (1 + 4), 2 * n)
 
-    # kernel 1: fused blendshapes at the full FLAME width
+    # kernel 1: fused blendshapes at the full FLAME width; the library call
+    # for the same function is one fp32 GEMM with the add fused, TF32 off
+    # (the geometry's precision)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    dirs, template = flame.shapedirs, flame.v_template
+    template_flat = template.reshape(1, -1)
+    K, N = dirs.shape
     blend_err = 0.0
-    blend_ms = blend_plain_ms = None
-    for B in (1, 7, SLICE_B, BENCH_B):
-        betas = torch.randn((B, flame.shapedirs.shape[0]), generator=gen).to(dev)
-        out = blend_shapes_fused(betas, flame.shapedirs, flame.v_template)
-        ref = blend_shapes_fused_reference(betas, flame.shapedirs, flame.v_template)
+    timed = {}
+    for B in (1, 7, SLICE_B, BENCH_B, BENCH_B + 1):
+        betas = torch.randn((B, K), generator=gen).to(dev)
+        out = blend_shapes_fused(betas, dirs, template)
+        again = blend_shapes_fused(betas, dirs, template)
+        ref = blend_shapes_fused_reference(betas, dirs, template)
         err = (out - ref).abs().max().item()
         rel = err / ref.abs().max().item()
-        k_ms = median_ms(lambda: blend_shapes_fused(betas, flame.shapedirs, flame.v_template), flush=flush)
-        p_ms = median_ms(lambda: blend_shapes_fused_reference(betas, flame.shapedirs, flame.v_template), flush=flush)
-        print(f"[blendshapes] B={B} N={flame.shapedirs.shape[1]}: max abs diff {err:.3g} (rel {rel:.3g}), "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        k_ms, k_host_ms = kernel_ms(lambda: blend_shapes_fused(betas, dirs, template), flush)
+        p_ms = median_ms(lambda: blend_shapes_fused_reference(betas, dirs, template), flush=flush, spin=True)
+        (b_ms, b_by), simt_ms = blend_bounds(4 * (B * K + K * N + N + B * N), B * K * N)
+        line = (f"[blendshapes] B={B} N={N}: max abs diff {err:.3g} (rel {rel:.3g}), second launch identical "
+                f"{torch.equal(out, again)}, kernel {k_ms:.4f} ms ({k_host_ms:.4f} with the host's dispatch), plain "
+                f"{p_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}; fp32 outside the tensor cores {simt_ms:.4f} ms)")
+        if B in (SLICE_B, BENCH_B):
+            lib_ms, lib_host_ms = kernel_ms(lambda: torch.addmm(template_flat, betas, dirs), flush)
+            timed[B] = (k_ms, k_host_ms, p_ms, lib_ms, lib_host_ms, b_ms, b_by, simt_ms)
+            line += f", torch.addmm (fp32, TF32 off) {lib_ms:.4f} ms ({lib_host_ms:.4f} with the host's dispatch)"
+        print(line)
         assert out.shape == (B, flame.num_vertices, 3), out.shape
-        assert err <= 1e-4 and rel <= 1e-5, (B, err, rel)
+        assert err <= 1e-4 and rel <= 1e-5 and torch.equal(out, again), (B, err, rel)
         blend_err = max(blend_err, err)
-        blend_ms, blend_plain_ms = k_ms, p_ms  # the last, B=256, goes in the summary
-    # the library call for the same function: one fp32 GEMM with the add
-    # fused, TF32 off (the geometry's precision)
-    assert not torch.backends.cuda.matmul.allow_tf32
-    template_flat = flame.v_template.reshape(1, -1)
-    blend_lib_ms = median_ms(lambda: torch.addmm(template_flat, betas, flame.shapedirs), flush=flush)
-    K, N = flame.shapedirs.shape
-    blend_bound = bound(4 * (BENCH_B * K + K * N + N + BENCH_B * N), 2 * BENCH_B * K * N + BENCH_B * N)
-    print(f"[blendshapes] B={BENCH_B} torch.addmm (fp32, TF32 off): {blend_lib_ms:.4f} ms")
+    blend_ms, blend_host_ms, blend_plain_ms, blend_lib_ms, blend_lib_host_ms, b_ms, b_by, simt_ms = timed[BENCH_B]
     return {
         "blend_shapes_fused": {
             "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/blendshapes.cu",
             "replaces": "dad3dheads_tpu/ops/blendshapes.py:36",
-            "max_abs_err": blend_err, "ms": blend_ms, "plain_ms": blend_plain_ms,
-            "bound_ms": blend_bound[0], "bound_by": blend_bound[1], "library_ms": blend_lib_ms,
+            "max_abs_err": blend_err, "ms": blend_ms, "ms_host": blend_host_ms, "plain_ms": blend_plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": blend_lib_ms, "library_ms_host": blend_lib_host_ms,
+            "fp32_bound_ms": simt_ms,
             "shape": f"B={BENCH_B} K={K} N={N}"},
         "normalize_images": {
             "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/normalize.cu",
             "replaces": "dad3dheads_tpu/ops/preprocess_pallas.py:30",
-            "max_abs_err": norm_err, "ms": norm_ms, "plain_ms": norm_plain_ms,
-            "bound_ms": norm_bound[0], "bound_by": norm_bound[1], "library_ms": None,
+            "max_abs_err": norm_err, "ms": norm_ms, "ms_host": norm_host_ms, "plain_ms": norm_plain_ms,
+            "bound_ms": norm_bound[0], "bound_by": norm_bound[1], "library_ms": None, "library_ms_host": None,
             "shape": f"{shapes[0]}"},
     }
 
@@ -321,17 +341,18 @@ def phase3b_resample(flush: torch.Tensor) -> dict:
     buf, sizes, packed_boxes = pack_frames_host(frames, boxes, FRAMES_B, planar=True)
     x = torch.from_numpy(buf).to(dev)
     scalars = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(packed_boxes), IMG)[0].to(dev)
-    k_ms = median_ms(lambda: resample_normalize(x, scalars, IMG), flush=flush)
-    p_ms = median_ms(lambda: resample_normalize_reference(x, scalars, IMG), flush=flush)
+    k_ms, k_host_ms = kernel_ms(lambda: resample_normalize(x, scalars, IMG), flush)
+    p_ms = median_ms(lambda: resample_normalize_reference(x, scalars, IMG), flush=flush, spin=True)
     n_bytes, ops = resample_work(torch.from_numpy(sizes), torch.from_numpy(packed_boxes), IMG, FRAMES_B * IMG * IMG * 3 * 4)
     b_ms, b_by = bound(n_bytes, ops)
-    print(f"[resample] B={FRAMES_B} 1280x720 planar, face boxes: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+    print(f"[resample] B={FRAMES_B} 1280x720 planar, face boxes: kernel {k_ms:.4f} ms ({k_host_ms:.4f} with "
+          f"the host's dispatch), plain {p_ms:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, {ops / 1e9:.3f} GFLOP)")
     return {"resample_normalize": {
         "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/resample.cu",
         "replaces": "dad3dheads_tpu/ops/preprocess_pallas.py:327",
-        "max_abs_err": err32, "max_abs_err_bf16": err16, "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "max_abs_err": err32, "max_abs_err_bf16": err16, "ms": k_ms, "ms_host": k_host_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "library_ms_host": None,
         "shape": f"B={FRAMES_B} 720x1280 planar -> {IMG}x{IMG} fp32"}}
 
 
@@ -396,17 +417,18 @@ def phase3c_raster(flame: FlameModel, flush: torch.Tensor) -> dict:
         err = max(err, e)
     verts, faces, h, w = cases["flame 512x640"]
     vt, ft = torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev)
-    k_ms = median_ms(lambda: rasterize_buffers(vt, ft, h, w), flush=flush)
-    p_ms = median_ms(lambda: rasterize_buffers_reference(vt, ft, h, w), reps=5, warmup=1, flush=flush)
+    k_ms, k_host_ms = kernel_ms(lambda: rasterize_buffers(vt, ft, h, w), flush)
+    p_ms = median_ms(lambda: rasterize_buffers_reference(vt, ft, h, w), reps=5, warmup=1, flush=flush, spin=True)
     n_bytes, ops = raster_work(verts, faces, h, w)
     b_ms, b_by = bound(n_bytes, ops)
-    print(f"[rasterize] flame 512x640 ({len(faces)} faces): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+    print(f"[rasterize] flame 512x640 ({len(faces)} faces): kernel {k_ms:.4f} ms ({k_host_ms:.4f} with the "
+          f"host's dispatch), plain {p_ms:.4f} ms, "
           f"bound {b_ms:.5f} ms ({b_by})")
     return {"rasterize_buffers": {
         "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/rasterize.cu",
         "replaces": "dad3dheads_tpu/render/rasterizer_pallas.py:120",
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None, "shape": f"{len(faces)} faces -> {h}x{w}"}}
+        "max_abs_err": err, "ms": k_ms, "ms_host": k_host_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None, "library_ms_host": None, "shape": f"{len(faces)} faces -> {h}x{w}"}}
 
 
 # --------------------------------------------------------------------------
@@ -592,20 +614,22 @@ def phase3d_blend_backward(flame: FlameModel, flush: torch.Tensor) -> dict:
     g = torch.randn((B, N), generator=gen).to(dev)
     betas = torch.randn((B, L), generator=gen).to(dev)
     needs = (True, False, True)
-    k_ms = median_ms(lambda: blend_shapes_fused_backward(g, betas, dirs, needs), flush=flush)
-    p_ms = median_ms(lambda: blend_shapes_fused_backward_reference(g, betas, dirs, needs), flush=flush)
+    k_ms, k_host_ms = kernel_ms(lambda: blend_shapes_fused_backward(g, betas, dirs, needs), flush)
+    p_ms = median_ms(lambda: blend_shapes_fused_backward_reference(g, betas, dirs, needs), flush=flush, spin=True)
     assert not torch.backends.cuda.matmul.allow_tf32
-    lib_ms = median_ms(lambda: (torch.matmul(g, dirs.T), g.sum(0)), flush=flush)
-    all_ms = median_ms(lambda: blend_shapes_fused_backward(g, betas, dirs), flush=flush)
-    b_ms, b_by = bound(4 * (B * N + L * N + B * L + N), 2 * B * L * N + B * N)
-    print(f"[blend backward] B={B} d_betas + d_template: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"torch.matmul + sum (fp32, TF32 off) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-          f"with d_shapedirs {all_ms:.4f} ms")
+    lib_ms, lib_host_ms = kernel_ms(lambda: (torch.matmul(g, dirs.T), g.sum(0)), flush)
+    all_ms = median_ms(lambda: blend_shapes_fused_backward(g, betas, dirs), flush=flush, spin=True)
+    (b_ms, b_by), simt_ms = blend_bounds(4 * (B * N + L * N + B * L + N), B * L * N)
+    print(f"[blend backward] B={B} d_betas + d_template: kernel {k_ms:.4f} ms ({k_host_ms:.4f} with the host's "
+          f"dispatch), plain {p_ms:.4f} ms, torch.matmul + sum (fp32, TF32 off) {lib_ms:.4f} ms ({lib_host_ms:.4f} "
+          f"with the host's dispatch), bound {b_ms:.4f} ms ({b_by}; fp32 outside "
+          f"the tensor cores {simt_ms:.4f} ms); with d_shapedirs {all_ms:.4f} ms")
     return {"blend_shapes_fused_backward": {
         "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/blendshapes_bwd.cu",
         "replaces": "dad3dheads_tpu/ops/blendshapes.py:86",
-        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms, "shape": f"g ({B}, {N}) -> d_betas ({B}, {L}) + d_template ({N},)"}}
+        "max_abs_err": err, "ms": k_ms, "ms_host": k_host_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms, "library_ms_host": lib_host_ms, "fp32_bound_ms": simt_ms,
+        "shape": f"g ({B}, {N}) -> d_betas ({B}, {L}) + d_template ({N},)"}}
 
 
 # --------------------------------------------------------------------------

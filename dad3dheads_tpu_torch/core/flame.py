@@ -67,7 +67,10 @@ class FlameParams:
 @dataclasses.dataclass
 class FlameModel:
     """FLAME decoder constants on one device. ``shapedirs`` is kept
-    pre-transposed to the (400, V*3) layout the blendshape kernel reads."""
+    pre-transposed to the (400, V*3) layout the blendshape kernels read, as
+    a view of a buffer whose rows are padded to a multiple of 4 floats, so
+    that every row starts 16-byte aligned and the kernels copy it 16 bytes at
+    a time (V*3 = 15,069 would put the rows 60,276 bytes apart, 4 mod 16)."""
 
     v_template: torch.Tensor  # (V, 3)
     shapedirs: torch.Tensor  # (400, V*3)
@@ -85,9 +88,16 @@ class FlameModel:
         def put(a):
             return torch.as_tensor(a, dtype=torch.float32).contiguous().to(device)
 
+        def put_rows_aligned(a):
+            t = torch.as_tensor(a, dtype=torch.float32)
+            rows, n = t.shape
+            buf = torch.zeros((rows, -(-n // 4) * 4), dtype=torch.float32, device=device)
+            buf[:, :n] = t
+            return buf[:, :n]
+
         return cls(
             v_template=put(arrays.v_template),
-            shapedirs=put(arrays.shapedirs.reshape(V * 3, -1).T),
+            shapedirs=put_rows_aligned(arrays.shapedirs.reshape(V * 3, -1).T),
             posedirs=put(arrays.posedirs),
             j_regressor=put(arrays.j_regressor),
             lbs_weights=put(arrays.lbs_weights),

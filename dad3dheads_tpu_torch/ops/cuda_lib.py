@@ -31,15 +31,17 @@ BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # each kernel's registers, static shared memory and spills, kept in the build log
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C name -> argtypes; every function returns a cudaError_t as int
 _SIGNATURES = {
-    # betas, dirs, template, out, B, K, N, device, stream
-    "d3d_blend_shapes_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
-    # g, dirs, betas, partial, tmpl_partial, d_betas, d_tmpl, d_dirs (or null), B, K, N, chunk, device, stream
-    "d3d_blend_shapes_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # betas, dirs, template, out, B, K, N, dirs row stride, device, stream
+    "d3d_blend_shapes_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # g, dirs, betas, partial, tmpl_partial, d_betas, d_tmpl, d_dirs (or null), B, K, N,
+    # g row stride, dirs row stride, chunk, device, stream
+    "d3d_blend_shapes_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # images, out, B, H, W, scale[3], bias[3], device, stream
     "d3d_normalize_u8": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
     # frames, scalars, tmp, out, B, Hmax, Wmax, S, planar, out_bf16, scale[3], bias[3], device, stream
@@ -77,16 +79,25 @@ def _nvcc() -> str:
     return found
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with every failure's output."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel and return their error outputs; raise
+    with every failure's output."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for c in cmds]
-    failures = []
+    failures, outputs = [], []
     for cmd, proc in zip(cmds, procs):
         _, err = proc.communicate()
+        outputs.append(err)
         if proc.returncode != 0:
             failures.append(f"{' '.join(cmd)}\n{err}")
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return outputs
+
+
+def build_log_path() -> Path:
+    """The compiler's report (``-Xptxas -v``) for the library of
+    :func:`library_path`, one section per source."""
+    return library_path().with_suffix(".log")
 
 
 def build() -> tuple[Path, float]:
@@ -99,12 +110,13 @@ def build() -> tuple[Path, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     stem = f"{path.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sorted(CSRC_DIR.glob("*.cu"))]
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{stem}.{src.stem}.o" for src in sources]
     t0 = time.perf_counter()
-    _run_all([
-        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        for src, obj in zip(sorted(CSRC_DIR.glob("*.cu")), objects)
+    reports = _run_all([
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)
     ])
+    build_log_path().write_text("".join(f"== {src.name}\n{report}" for src, report in zip(sources, reports)))
     tmp = BUILD_DIR / f"{stem}.tmp.so"
     _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
     seconds = time.perf_counter() - t0

@@ -27,6 +27,16 @@ from dad3dheads_tpu_torch.ops.preprocess_device import (
 )
 from dad3dheads_tpu_torch.ops.resample import resample_normalize, resample_normalize_reference
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tests run beside other test processes: two torch threads each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 S = 64
 MODES = ("longest_max_size", "resize")
 LAYOUTS = ("nhwc", "planar")

@@ -25,6 +25,16 @@ from dad3dheads_tpu_torch.core import projection as tproj
 from dad3dheads_tpu_torch.core import rotation as trot
 from dad3dheads_tpu_torch.ops import preprocess as tpre
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tests run beside other test processes: two torch threads each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-5
 
 

@@ -17,8 +17,19 @@ from dad3dheads_tpu_torch.ops.blendshapes import (
     blend_shapes_fused_backward,
     blend_shapes_fused_backward_reference,
     blend_shapes_fused_reference,
+    split_k_chunk,
 )
 from dad3dheads_tpu_torch.ops.preprocess import normalize_images, normalize_images_reference
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tests run beside other test processes: two torch threads each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
 
 MODES = ("imagenet", "mean", "none")
 
@@ -76,6 +87,79 @@ def test_blendshapes_plain_matches_xla_full_flame():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
 
 
+def _tf32x3_split(x):
+    """The kernels' split of an fp32 array (csrc/tf32x3.cuh): hi rounds the
+    bit pattern to nearest at 13 dropped bits (cvt.rna.tf32.f32, ties away
+    from zero), lo = x - hi (exact) truncated to tf32 as the MMA reads it."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    lo = ((x - hi).view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    return hi, lo
+
+
+def _tf32x3_matmul(a, b):
+    """a @ b as the kernels compute it: three tf32 products (each exact in
+    fp32), small terms first, summed in fp32."""
+    a_hi, a_lo = _tf32x3_split(a)
+    b_hi, b_lo = _tf32x3_split(b)
+    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
+
+
+def test_tf32x3_split_is_exact_and_tf32():
+    """hi and lo carry no bits below tf32's; hi is x to nearest, and lo
+    takes back all of the rest but what its truncation drops."""
+    x = (np.random.default_rng(16).normal(size=4096) * 10.0 ** np.arange(-3, 5).repeat(512)).astype(np.float32)
+    hi, lo = _tf32x3_split(x)
+    assert not (hi.view(np.uint32) & 0x1FFF).any() and not (lo.view(np.uint32) & 0x1FFF).any()
+    assert np.all(np.abs(x - hi) <= np.abs(x) * 2.0**-11)  # round to nearest: half a tf32 ulp
+    assert np.all(np.abs(x - hi - lo) <= np.abs(x) * 2.0**-21)  # what truncating lo drops
+
+
+@pytest.mark.parametrize("which", ["forward_B256", "backward_B64"])
+def test_tf32x3_scheme_sits_far_inside_the_card_tolerances(flame_model_arrays, which):
+    """The 3xTF32 arithmetic of the blendshape kernels, emulated in numpy at
+    the full FLAME width on the real shapedirs, against an fp64 product.
+    chip_smoke.py holds the forward to abs 1e-4 and 1e-5 of the largest
+    output, the backward's d_betas to 1e-5 of its largest sum of absolute
+    products; the scheme sits at a tenth of each or less (measured: forward
+    6.2e-8 abs, 3.5e-7 relative, a plain fp32 product 5.6e-8; d_betas 1.8e-8
+    of the scale, plain 2.1e-8). One tf32 product alone (hi * hi) misses the
+    forward's relative bound (1.8e-4)."""
+    V = flame_model_arrays.v_template.shape[0]
+    dirs = flame_model_arrays.shapedirs.reshape(V * 3, -1).T.astype(np.float32)
+    template = flame_model_arrays.v_template.reshape(-1).astype(np.float32)
+    rng = np.random.default_rng(17)
+    if which == "forward_B256":
+        betas = rng.normal(size=(256, dirs.shape[0])).astype(np.float32)
+        exact = betas.astype(np.float64) @ dirs.astype(np.float64) + template
+        got = _tf32x3_matmul(betas, dirs) + template
+        err = np.abs(got - exact).max()
+        assert err <= 1e-5 and err / np.abs(exact).max() <= 1e-6, err
+        one_tf32 = _tf32x3_split(betas)[0] @ _tf32x3_split(dirs)[0] + template
+        assert np.abs(one_tf32 - exact).max() / np.abs(exact).max() > 1e-5
+    else:
+        g = rng.normal(size=(64, dirs.shape[1])).astype(np.float32)
+        exact = g.astype(np.float64) @ dirs.T.astype(np.float64)
+        scale = (np.abs(g).astype(np.float64) @ np.abs(dirs.T).astype(np.float64)).max()
+        err = np.abs(_tf32x3_matmul(g, np.ascontiguousarray(dirs.T)) - exact).max()
+        assert err <= 1e-6 * scale, err / scale
+
+
+@pytest.mark.parametrize("B", [1, 7, 64, 128, 257])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_backward_split_k_fills_one_wave(B, sms):
+    """The split-K chunk of the d_betas kernel: a multiple of its 32-deep
+    step, chunks that cover N, and a grid of at most two blocks per SM
+    (one wave) that still fills most of them while there is N to split."""
+    L, N = 400, 15069
+    chunk = split_k_chunk(B, L, N, sms)
+    chunks = -(-N // chunk)
+    blocks = chunks * -(-L // 80) * -(-B // 64)
+    assert chunk % 32 == 0 and (chunks - 1) * chunk < N <= chunks * chunk
+    assert blocks <= 2 * sms or chunks == 1
+    assert blocks >= 1.5 * sms or chunks == 1
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_normalize_plain_matches_pallas_interpret(mode):
     """Tolerance 1e-5: the same fp32 x*scale + bias on both sides."""
@@ -101,6 +185,41 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     )
     assert torch.equal(normalize_images(imgs), normalize_images_reference(imgs))
     assert (blend_shapes_fused.launches, normalize_images.launches) == (n_blend, n_norm)
+
+
+def test_flame_shapedirs_rows_are_16_byte_aligned_views():
+    """FlameModel keeps shapedirs as a (400, 15069) view of a buffer with rows
+    of 15,072 floats, so that the kernels copy its rows 16 bytes at a time;
+    the values are the asset's and the plain version reads the view as is."""
+    from dad3dheads_tpu_torch.core.flame import FlameModel
+
+    dirs, template = _flame_flat()
+    flame = FlameModel.load()
+    assert flame.shapedirs.shape == dirs.shape and flame.shapedirs.stride() == (15072, 1)
+    assert flame.shapedirs.data_ptr() % 16 == 0
+    np.testing.assert_array_equal(flame.shapedirs.numpy(), dirs)
+    betas = torch.from_numpy(np.random.default_rng(18).normal(size=(2, 400)).astype(np.float32))
+    np.testing.assert_allclose(
+        blend_shapes_fused(betas, flame.shapedirs, flame.v_template).numpy(),
+        blend_shapes_fused(betas, torch.from_numpy(dirs), torch.from_numpy(template)).numpy(),
+        rtol=0, atol=1e-6,
+    )
+
+
+def test_kernel_argument_check_takes_padded_rows_only_where_allowed():
+    """The wrappers' check before a launch: shapedirs and g may have rows
+    further apart than their width (unit column stride); other layouts and
+    other operands raise."""
+    from dad3dheads_tpu_torch.ops.blendshapes import _check
+
+    padded = torch.zeros((4, 8))[:, :6]
+    _check((("shapedirs_flat", padded, (4, 6)),), padded.device, row_strided=("shapedirs_flat",))
+    with pytest.raises(ValueError, match="contiguous"):
+        _check((("betas", padded, (4, 6)),), padded.device, row_strided=("shapedirs_flat",))
+    with pytest.raises(ValueError, match="unit column stride"):
+        _check((("shapedirs_flat", torch.zeros((6, 4)).T, (4, 6)),), padded.device, row_strided=("shapedirs_flat",))
+    with pytest.raises(ValueError, match="shape"):
+        _check((("g", padded, (4, 8)),), padded.device, row_strided=("g",))
 
 
 def test_wrappers_refuse_other_devices():
@@ -129,19 +248,53 @@ def test_normalize_kernel_matches_plain(cuda, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 7, 256])
+@pytest.mark.parametrize("B", [1, 7, 64, 256, 257])
 def test_blendshapes_kernel_matches_plain(cuda, B):
-    """Full FLAME width; fp32 sums in another order: abs 1e-4, rel 1e-5."""
+    """Full FLAME width, every row-tile configuration of the kernel and a
+    ragged last tile (257), with shapedirs contiguous (rows copied 4 bytes at
+    a time) and as FlameModel keeps it (rows padded to 16-byte alignment);
+    3xTF32 against fp32 sums in another order: abs 1e-4, rel 1e-5; the same
+    bits on a second launch."""
+    from dad3dheads_tpu_torch.core.flame import FlameModel
+
     dirs, template = _flame_flat()
     dirs_t, tmpl_t = torch.from_numpy(dirs).to(cuda), torch.from_numpy(template).to(cuda)
+    padded = FlameModel.load(device=cuda).shapedirs
+    assert padded.stride(0) % 4 == 0 and torch.equal(padded, dirs_t)
     betas = torch.randn((B, 400), generator=torch.Generator().manual_seed(B)).to(cuda)
-    before = blend_shapes_fused.launches
-    out = blend_shapes_fused(betas, dirs_t, tmpl_t)
-    ref = blend_shapes_fused_reference(betas, dirs_t, tmpl_t)
-    assert blend_shapes_fused.launches == before + 1
-    assert out.shape == (B, 5023, 3)
+    for layout in (dirs_t, padded):
+        before = blend_shapes_fused.launches
+        out = blend_shapes_fused(betas, layout, tmpl_t)
+        ref = blend_shapes_fused_reference(betas, layout, tmpl_t)
+        assert blend_shapes_fused.launches == before + 1
+        assert out.shape == (B, 5023, 3)
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-4 and err / ref.abs().max().item() <= 1e-5
+        assert torch.equal(blend_shapes_fused(betas, layout, tmpl_t), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [5, 33, 130])
+def test_blendshapes_kernels_take_aligned_and_unaligned_rows(cuda, B):
+    """Rows that are 16-byte aligned (N = 384) are copied 16 bytes at a time,
+    betas that start 4 bytes past an aligned address one element at a time
+    (FLAME's N = 15,069 takes that path for shapedirs and g): both kernels
+    against their plain versions, with the tolerances of the FLAME tests."""
+    gen = torch.Generator().manual_seed(B)
+    L, V = 400, 128
+    dirs = (torch.randn((L, V * 3), generator=gen) * 1e-2).to(cuda)
+    template = torch.randn((V, 3), generator=gen).to(cuda)
+    betas = torch.randn((B * L + 1,), generator=gen).to(cuda)[1:].view(B, L)
+    assert betas.data_ptr() % 16 == 4 and betas.is_contiguous()
+    out = blend_shapes_fused(betas, dirs, template)
+    ref = blend_shapes_fused_reference(betas, dirs, template)
     err = (out - ref).abs().max().item()
     assert err <= 1e-4 and err / ref.abs().max().item() <= 1e-5
+    g = torch.randn((B, V * 3), generator=gen).to(cuda)
+    got = blend_shapes_fused_backward(g, betas, dirs, (True, False, True))
+    want = blend_shapes_fused_backward_reference(g, betas, dirs, (True, False, True))
+    assert (got[0] - want[0]).abs().max().item() <= 1e-5 * (g.abs() @ dirs.abs().T).max().item()
+    assert (got[2] - want[2]).abs().max().item() <= 1e-5 * g.abs().sum(0).max().item()
 
 
 @pytest.mark.cuda
@@ -167,15 +320,16 @@ def test_blendshapes_kernel_gradients_match_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B", [1, 7, 64, 128])
+@pytest.mark.parametrize("B", [1, 7, 64, 128, 256, 257])
 def test_blendshapes_backward_kernel_matches_plain(cuda, B):
     """d_betas, d_shapedirs, d_template against the plain version, each
     within 1e-5 of its sum of absolute products; the same bits on a second
     launch (no atomics); d_shapedirs only when asked for."""
-    dirs, _ = _flame_flat()
-    dirs_t = torch.from_numpy(dirs).to(cuda)
+    from dad3dheads_tpu_torch.core.flame import FlameModel
+
+    dirs_t = FlameModel.load(device=cuda).shapedirs  # rows padded to 16-byte alignment, as the train step has it
     gen = torch.Generator().manual_seed(B)
-    g = torch.randn((B, dirs.shape[1]), generator=gen).to(cuda)
+    g = torch.randn((B, dirs_t.shape[1]), generator=gen).to(cuda)
     betas = torch.randn((B, 400), generator=gen).to(cuda)
     out = blend_shapes_fused_backward(g, betas, dirs_t)
     again = blend_shapes_fused_backward(g, betas, dirs_t)

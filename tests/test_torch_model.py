@@ -22,6 +22,16 @@ from dad3dheads_tpu.models import create_model as jax_create_model
 from dad3dheads_tpu_torch import weights
 from dad3dheads_tpu_torch.models import create_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tests run beside other test processes: two torch threads each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 TOOLS = os.path.join(os.path.dirname(__file__), "..", "tools")
 IMG = 64
 KEYS = (OUTPUT_LANDMARKS_HEATMAP, OUTPUT_3DMM_PARAMS, OUTPUT_2D_LANDMARKS)

@@ -24,6 +24,15 @@ from dad3dheads_tpu_torch.core.head_mesh import HeadMesh
 from dad3dheads_tpu_torch.render.rasterizer import rasterize_buffers, rasterize_buffers_reference
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """The tests run beside other test processes: two torch threads each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 2))
+    yield
+    torch.set_num_threads(threads)
+
+
 def random_triangles(seed=0, n_tris=40, width=127.0):
     """The triangles of the JAX package's Pallas-vs-XLA rasterizer test."""
     rng = np.random.default_rng(seed)
@@ -389,16 +398,45 @@ def test_rasterize_kernel_matches_plain(cuda, case):
 
 @pytest.mark.cuda
 def test_renderers_on_the_card_match_the_cpu(cuda):
+    """PNCC and the UV texture rendered on the card against the CPU's
+    renderers. The card decodes the head with the 3xTF32 blendshape kernel,
+    whose sums are not bit-identical to the CPU's fp32 ones, and a pixel
+    centre that close to a triangle edge may fall on the neighbouring
+    triangle. So: the two decodes within 1e-3 px; the CPU's renderers
+    drawing the card's decode within one uint8 level everywhere; and the
+    card's decode and render against the CPU's decode and render within one
+    level on all but 0.1% of the values (the limit of ``chip_smoke.py``
+    phase 4c), the count printed."""
     image = np.random.default_rng(9).integers(0, 256, (200, 300, 3), dtype=np.uint8)
     preds = {"3dmm_params": head_params()}
     from dad3dheads_tpu_torch.render import PNCCEstimator, UVTextureCreator
 
-    flame = FlameModel.load(device=cuda)
+    card_mesh = HeadMesh(model=FlameModel.load(device=cuda))
+    cpu_mesh = HeadMesh(device="cpu")
+
+    class CardDecode(HeadMesh):
+        """The CPU's head mesh, with the vertices the card decodes."""
+
+        def reprojected_vertices(self, params_3dmm, to_2d=True):
+            return card_mesh.reprojected_vertices(params_3dmm, to_2d).cpu()
+
+    mm = torch.from_numpy(preds["3dmm_params"])
+    for to_2d in (False, True):
+        gap = card_mesh.reprojected_vertices(mm, to_2d).cpu() - cpu_mesh.reprojected_vertices(mm, to_2d)
+        assert gap.abs().max().item() <= 1e-3
     before = rasterize_buffers.launches
-    pncc = PNCCEstimator(HeadMesh(model=flame))(image, preds)
-    uv = UVTextureCreator(resolution=128, head_mesh=HeadMesh(model=flame))(image, preds)
+    pncc = PNCCEstimator(card_mesh)(image, preds)
+    uv = UVTextureCreator(resolution=128, head_mesh=card_mesh)(image, preds)
     assert rasterize_buffers.launches >= before + 2
-    ref_pncc = PNCCEstimator(device="cpu")(image, preds)
-    ref_uv = UVTextureCreator(resolution=128, device="cpu")(image, preds)
+    ref_pncc = PNCCEstimator(CardDecode(device="cpu"))(image, preds)
+    ref_uv = UVTextureCreator(resolution=128, head_mesh=CardDecode(device="cpu"))(image, preds)
     assert np.abs(pncc.astype(int) - ref_pncc.astype(int)).max() <= 1
     assert np.abs(uv.astype(int) - ref_uv.astype(int)).max() <= 1
+    cpu_pncc = PNCCEstimator(device="cpu")(image, preds)
+    cpu_uv = UVTextureCreator(resolution=128, device="cpu")(image, preds)
+    for name, out, ref in (("pncc", pncc, cpu_pncc), ("uv_texture", uv, cpu_uv)):
+        gap = np.abs(out.astype(int) - ref.astype(int))
+        far = int((gap > 1).sum())
+        print(f"{name}: {far} of {gap.size} values differ from the CPU's decode and render by more than one "
+              f"level (max {gap.max()})")
+        assert far <= 1e-3 * gap.size, (name, far)
