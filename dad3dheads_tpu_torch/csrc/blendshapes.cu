@@ -47,6 +47,7 @@
 // needs no mask when it is a multiple of BK (400 is) and is zero-filled
 // otherwise. The template add is fused into the one masked write.
 
+#include "smem_opt_in.cuh"
 #include "tf32x3.cuh"
 
 namespace {

@@ -39,6 +39,7 @@
 // rows, so d_tmpl comes from the same read of g (partials per 16 rows,
 // reduced in the second kernel in order).
 
+#include "smem_opt_in.cuh"
 #include "tf32x3.cuh"
 
 namespace {

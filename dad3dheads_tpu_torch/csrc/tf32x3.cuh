@@ -1,7 +1,6 @@
-// fp32-accurate products on Hopper's tensor cores (3xTF32), the
-// asynchronous global -> shared copies that feed them, and the opt-in to
-// their large shared-memory rings. Shared by the FLAME blendshape forward
-// (blendshapes.cu) and backward (blendshapes_bwd.cu).
+// fp32-accurate products on Hopper's tensor cores (3xTF32) and the
+// asynchronous global -> shared copies that feed them. Shared by the FLAME
+// blendshape forward (blendshapes.cu) and backward (blendshapes_bwd.cu).
 //
 // 3xTF32. Each fp32 operand x is split once, when its fragment is read from
 // shared memory: hi = x rounded to tf32 (to nearest, ties away from zero, 13
@@ -22,27 +21,10 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
 namespace d3d {
-
-// A kernel whose dynamic shared memory exceeds 48 KB must opt in, and the
-// setting is held per device context: set it the first time the kernel
-// launches on the current device. `opted_in` is the kernel's own set of
-// device ordinals (one bit each; past 64 it is set on every launch).
-template <typename Kernel>
-inline cudaError_t opt_in_smem(Kernel kernel, int smem, std::atomic<uint64_t>& opted_in) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = device < 64 ? uint64_t{1} << device : 0;
-  if (bit & opted_in.load(std::memory_order_acquire)) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) opted_in.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
   hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;

@@ -34,8 +34,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # each kernel's registers, static shared memory and spills, kept in the build log
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C name -> argtypes; every function returns a cudaError_t as int
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# C name -> argtypes; every function returns a cudaError_t as int, but those of _RESTYPES
 _SIGNATURES = {
     # betas, dirs, template, out, B, K, N, dirs row stride, device, stream
     "d3d_blend_shapes_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -44,11 +44,14 @@ _SIGNATURES = {
     "d3d_blend_shapes_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # images, out, B, H, W, scale[3], bias[3], device, stream
     "d3d_normalize_u8": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
-    # frames, scalars, tmp, out, B, Hmax, Wmax, S, planar, out_bf16, scale[3], bias[3], device, stream
-    "d3d_resample_normalize_u8": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
-    # vertices, faces, tris, chunk_box, depth, tri_id, bary, V, T, H, W, device, stream
-    "d3d_rasterize": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # frames, scalars, out, B, Hmax, Wmax, S, planar, out_bf16, band, scale[3], bias[3], device, stream
+    "d3d_resample_normalize_u8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
+    # vertices, faces, scratch, scratch bytes, depth, tri_id, bary, V, T, H, W, device, stream
+    "d3d_rasterize": (_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # T, H, W
+    "d3d_rasterize_scratch_bytes": (_I, _I, _I),
 }
+_RESTYPES = {"d3d_rasterize_scratch_bytes": _L}
 
 
 def _sources() -> list[Path]:
@@ -133,7 +136,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, _I)
     return lib
 
 

@@ -21,6 +21,26 @@ from . import cuda_lib
 from .preprocess import normalize_scale_bias
 
 NSCALARS = 10
+# The kernel keeps each output row's source-row sums, 3 * Wmax floats, in
+# shared memory: a band of rows per block within this budget (two rows at
+# 1280 wide and one at 1920 timed fastest on the H100) and at most the H100's
+# 227 KB for one row.
+_SMEM_BUDGET = 40 * 1024
+_SMEM_MAX = 232448
+_MAX_BAND = 8
+
+
+def resample_plan(wmax: int) -> tuple[int, int]:
+    """(band, shared bytes) of the kernel for frames ``wmax`` pixels wide:
+    ``band`` output rows per block, each holding the row sums of a whole
+    source row, 3 * wmax fp32. It depends on the buffer's width alone, so it
+    covers any crop and scale factor the scalar table can hold; raises when
+    one row does not fit."""
+    row = 3 * 4 * int(wmax)
+    if row > _SMEM_MAX:
+        raise ValueError(f"frames {wmax} wide need {row} bytes of shared memory a row; the kernel has {_SMEM_MAX}")
+    band = max(1, min(_MAX_BAND, _SMEM_BUDGET // row))
+    return band, band * row
 
 
 def axis_weights(
@@ -135,9 +155,10 @@ def resample_normalize(
     (float32 or bfloat16), S = ``img_size``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes contiguous tensors on one device and raises on anything else. The
-    scalars must describe crops inside each frame (``frame_scalars`` clamps
-    the boxes so)."""
+    takes contiguous tensors on one device, frames up to 19,370 pixels wide
+    (:func:`resample_plan`), and raises on anything else. The scalars must
+    describe crops inside each frame (``frame_scalars`` clamps the boxes
+    so)."""
     if frames.device.type == "cpu":
         return resample_normalize_reference(frames, scalars, img_size, normalize, out_dtype)
     if frames.device.type != "cuda":
@@ -154,14 +175,14 @@ def resample_normalize(
         raise ValueError("frames and scalars must be contiguous")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    band, _ = resample_plan(Wmax)
     scale, bias = normalize_scale_bias(normalize)
     S = int(img_size)
     out = torch.empty((B, S, S, 3), dtype=out_dtype, device=frames.device)
-    tmp = torch.empty((B, S, 3 * Wmax), dtype=torch.float32, device=frames.device)
     device, stream = cuda_lib.launch_args(frames)
     code = cuda_lib.library().d3d_resample_normalize_u8(
-        frames.data_ptr(), scalars.data_ptr(), tmp.data_ptr(), out.data_ptr(),
-        B, Hmax, Wmax, S, int(planar), int(out_dtype == torch.bfloat16),
+        frames.data_ptr(), scalars.data_ptr(), out.data_ptr(),
+        B, Hmax, Wmax, S, int(planar), int(out_dtype == torch.bfloat16), band,
         *(float(v) for v in scale), *(float(v) for v in bias), device, stream,
     )
     cuda_lib.check(code, "d3d_resample_normalize_u8")

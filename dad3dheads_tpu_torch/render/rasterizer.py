@@ -9,7 +9,11 @@ other dispatch. Both keep the JAX package's XLA semantics: depth starts at
 -1e8 and id at -1, a pixel at integer coordinates (x, y) is inside when its
 three barycentric weights are >= -1e-5, triangles of |doubled area| <= 1e-12
 are rejected, the largest z wins (callers flip z for a camera looking down
--z) and, on an exact tie, the lowest triangle index.
+-z) and, on an exact tie, the lowest triangle index. Both skip only pairs
+that cannot pass the inside test: those outside the triangle's widened box
+(:func:`box_margin`). Where a z is NaN, the XLA version and the plain one
+(``torch.max``, like ``argmax``) let it void its whole chunk's winner at that
+pixel; the kernel skips that triangle alone.
 """
 
 from __future__ import annotations
@@ -23,14 +27,47 @@ from ..ops import cuda_lib
 ZBUF_INIT = -1e8
 _EPS = 1e-5
 _MIN_AREA = 1e-12
-_CHUNK = 128  # triangles per culling box in the kernel
-# A triangle's box is widened by 1 px + 1e-3 of its extent before culling:
-# the -1e-5 barycentric tolerance reaches at most 2e-5 of the extent past it.
 _MARGIN_PX, _MARGIN_REL = 1.0, 1e-3
+_U = 2.0**-24  # fp32's unit roundoff
+_MAX_SIDE = 32767  # the kernel keeps pixel bounds in 16 bits
 
 
 def _corners(vertices: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
     return vertices.float()[faces.long()]  # (T, 3 corners, 3 xyz)
+
+
+def box_margin(lo_x, hi_x, lo_y, hi_y, area, height: int, width: int) -> torch.Tensor:
+    """How far past its box (lo_x..hi_x, lo_y..hi_y) a triangle of doubled
+    area ``area`` is tested on a height x width image, so that no pixel
+    beyond passes the inside test (``csrc/rasterize.cu`` computes the same).
+
+    A pixel d past the box has an exact weight <= -d / (2E), E the extent.
+    Evaluated as the inside test does, a weight errs by less than
+    31u (E + d)^2 / |area| plus the area's relative error 8u E^2 / |area|
+    (u = 2^-24). Where d / (2E) exceeds twice those and twice the 1e-5
+    tolerance, the pixel fails the test. Twice the error is concave in d, so
+    that holds on the interval between the quadratic's roots: the margin is
+    1 px + 1e-3 E, or the smaller root where that is larger (long thin
+    triangles), and infinity (the whole image) unless both the margin, less
+    the box's own rounding, and the image's farthest pixel lie inside the
+    interval (slivers whose computed area is mostly rounding)."""
+    extent = torch.maximum(hi_x - lo_x, hi_y - lo_y)
+    a = torch.abs(area)
+    tol = 2 * _EPS + 16 * _U * extent * extent / a
+    k = 64 * _U / a
+
+    def clear(d):
+        return d / (2 * extent) > tol + k * (extent + d) * (extent + d)
+
+    # d / (2E) = tol + k (E + d)^2 in s = E + d: k s^2 - s / (2E) + 1/2 + tol = 0
+    b = 0.5 / extent
+    root = (1 + 2 * tol) / (b + torch.sqrt(torch.clamp(b * b - 4 * k * (0.5 + tol), min=0))) - extent
+    margin = torch.maximum(_MARGIN_PX + _MARGIN_REL * extent, 1.0625 * root)
+    coord = torch.maximum(torch.maximum(lo_x.abs(), hi_x.abs()), torch.maximum(lo_y.abs(), hi_y.abs()))
+    near = margin - 4 * _U * (coord + margin)
+    far = torch.maximum(torch.maximum(lo_x, (width - 1) - hi_x), torch.maximum(lo_y, (height - 1) - hi_y)) + 1
+    sound = (16 * _U * extent * extent <= 0.125 * a) & ((far <= near) | (clear(near) & clear(far)))
+    return torch.where(sound, margin, torch.full_like(margin, float("inf")))
 
 
 def rasterize_buffers_reference(
@@ -54,9 +91,9 @@ def rasterize_buffers_reference(
     area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
     ok = torch.abs(area) > _MIN_AREA
     inv_area = torch.where(ok, 1.0 / area, torch.zeros_like(area))
+    lo_x, hi_x = tri[:, :, 0].min(dim=1).values, tri[:, :, 0].max(dim=1).values
     lo_y, hi_y = tri[:, :, 1].min(dim=1).values, tri[:, :, 1].max(dim=1).values
-    extent = torch.maximum(tri[:, :, 0].max(dim=1).values - tri[:, :, 0].min(dim=1).values, hi_y - lo_y)
-    margin = _MARGIN_PX + _MARGIN_REL * extent
+    margin = box_margin(lo_x, hi_x, lo_y, hi_y, area, height, width)
 
     depth = torch.full((height, width), ZBUF_INIT, dtype=torch.float32, device=dev)
     tri_id = torch.full((height, width), -1, dtype=torch.int32, device=dev)
@@ -102,7 +139,8 @@ def rasterize_buffers(
     fp32, the winning triangle's barycentric weights.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes fp32 vertices and raises on other devices or shapes."""
+    takes fp32 vertices, sides up to 32,767 and raises on other devices or
+    shapes."""
     if vertices.device.type == "cpu":
         return rasterize_buffers_reference(vertices, faces, height, width)
     if vertices.device.type != "cuda":
@@ -117,16 +155,17 @@ def rasterize_buffers(
     if T and not V:
         raise ValueError("faces index an empty vertex array")
     H, W = int(height), int(width)
-    n_chunks = -(-T // _CHUNK)
+    if H > _MAX_SIDE or W > _MAX_SIDE:
+        raise ValueError(f"the kernel rasterizes sides up to {_MAX_SIDE}, got {H}x{W}")
     dev = vertices.device
-    tris = torch.empty((n_chunks * _CHUNK, 16), dtype=torch.float32, device=dev)
-    chunk_box = torch.empty((max(n_chunks, 1), 4), dtype=torch.float32, device=dev)
+    lib = cuda_lib.library()
+    scratch = torch.empty(lib.d3d_rasterize_scratch_bytes(T, H, W), dtype=torch.uint8, device=dev)
     depth = torch.empty((H, W), dtype=torch.float32, device=dev)
     tri_id = torch.empty((H, W), dtype=torch.int32, device=dev)
     bary = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
     device, stream = cuda_lib.launch_args(vertices)
-    code = cuda_lib.library().d3d_rasterize(
-        vertices.data_ptr(), faces.data_ptr(), tris.data_ptr(), chunk_box.data_ptr(),
+    code = lib.d3d_rasterize(
+        vertices.data_ptr(), faces.data_ptr(), scratch.data_ptr(), scratch.numel(),
         depth.data_ptr(), tri_id.data_ptr(), bary.data_ptr(), V, T, H, W, device, stream,
     )
     cuda_lib.check(code, "d3d_rasterize")

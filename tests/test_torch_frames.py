@@ -222,6 +222,55 @@ def test_resample_wrapper_dispatch():
         resample_normalize(torch.empty((1, 8, 8, 3), dtype=torch.uint8, device="meta"), scalars[:1], S)
 
 
+def plan_tables(rng, hmax, wmax):
+    """Scalar tables of frame_scalars, both modes, on frames up to (hmax,
+    wmax) with whole-frame, 2-pixel, loose, flat, thin and interior boxes."""
+    sizes, boxes = [], []
+    for i in range(24):
+        h = hmax - 8 if i < 2 else int(rng.integers(8, hmax - 7))
+        w = wmax if i < 2 else int(rng.integers(8, wmax + 1))
+        x0, y0 = int(rng.integers(0, w - 2)), int(rng.integers(0, h - 2))
+        boxes.append([[0, 0, w, h], [x0, y0, x0 + 2, y0 + 2], [-40, -25, w + 60, h + 35], [0, h // 3, w, h // 3 + 5],
+                      [x0, 0, x0 + 3, h], [x0, y0, int(rng.integers(x0 + 1, w + 1)), int(rng.integers(y0 + 1, h + 1))]]
+                     [i % 6])
+        sizes.append([h, w])
+    sizes, boxes = torch.tensor(sizes, dtype=torch.int32), torch.tensor(boxes, dtype=torch.int32)
+    return [frame_scalars(sizes, boxes, 256, mode)[0] for mode in MODES]
+
+
+def test_resample_plan_covers_every_tap():
+    """The kernel sums each output row over the source columns [x0, x0 +
+    win), win = min(bw + 1, Wmax - x0) (csrc/resample.cu column_window), in
+    shared memory that resample_plan sizes from Wmax alone. For tables of
+    frame_scalars (both modes; exact area, 2-tap area and linear taps; Hmax
+    640 and 1088; a whole 1920x1080 frame at f = 7.5) every non-zero column
+    tap of axis_weights lies in that window, the window fits the plan's row,
+    and the bands cover the 256 output rows."""
+    from dad3dheads_tpu_torch.ops.resample import axis_weights, resample_plan
+
+    rng = np.random.default_rng(28)
+    schemes = set()
+    for hmax, wmax in ((640, 480), (1088, 1920)):
+        band, smem = resample_plan(wmax)
+        assert band >= 1 and smem == band * 3 * wmax * 4 <= 232448
+        assert -(-256 // band) * band >= 256
+        for s in plan_tables(rng, hmax, wmax):
+            x0, bw = s[:, 4], s[:, 5]
+            use_area, use_exact = s[:, 8] != 0, s[:, 9] != 0
+            schemes |= {(bool(a), bool(e)) for a, e in zip(use_area, use_exact)}
+            wx = axis_weights(wmax, 256, x0, bw, s[:, 6], s[:, 7], use_area, use_exact)
+            win = torch.minimum(bw + 1, wmax - x0)
+            assert (win <= wmax).all() and (x0 + bw <= wmax).all()
+            cols = torch.arange(wmax)[None, None, :]
+            inside = (cols >= x0[:, None, None]) & (cols < (x0 + win)[:, None, None])
+            assert not ((wx != 0) & ~inside).any()
+            assert (wx != 0).any(dim=(1, 2)).all()  # every image has taps
+    assert schemes == {(True, True), (True, False), (False, False)}, schemes
+    assert resample_plan(1920)[0] >= 1 and resample_plan(19370)[0] == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        resample_plan(19371)
+
+
 # --------------------------------------------------------------------------
 # the predictor: predict_frames and predict_images against the JAX predictor
 # --------------------------------------------------------------------------
@@ -421,6 +470,36 @@ def test_resample_kernel_matches_plain(cuda, hmax, wmax, layout):
             assert (out.float() - ref).abs().max().item() <= atol, (mode, dtype)
             cpu = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(bboxes), 256, mode)
             assert torch.equal(scales.cpu(), cpu[1]) and torch.equal(pads.cpu(), cpu[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_resample_kernel_stress_cases(cuda, layout):
+    """A whole 1920x1080 frame (f = 7.5) beside a 2-pixel crop (an upscale),
+    then a ragged Wmax (333: rows 999 bytes apart, the byte path): fp32
+    within 1e-4 (expected: equal), bf16 within 3e-2, the same bits on a
+    second launch, one launch per call, nothing allocated beyond the output."""
+    rng = np.random.default_rng(51)
+    for shapes, boxes, bucket in ((((1080, 1920), (1080, 1920)), [[0, 0, 1920, 1080], [700, 400, 702, 402]], 64),
+                                  (((300, 333), (250, 320)), [[0, 0, 333, 300], [17, 9, 19, 11]], 1)):
+        frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in shapes]
+        buf, sizes, packed = pack_frames_host(frames, boxes, 2, bucket=bucket, planar=layout == "planar")
+        x = torch.from_numpy(buf).to(cuda)
+        for mode in MODES:
+            scalars = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(packed), 256, mode)[0].to(cuda)
+            ref = resample_normalize_reference(x, scalars, 256)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # bytes asked of the caching allocator (its blocks may be larger)
+            before, launches = torch.cuda.memory_stats()["requested_bytes.all.current"], resample_normalize.launches
+            out = resample_normalize(x, scalars, 256)
+            peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+            assert peak - before == out.numel() * out.element_size()
+            assert resample_normalize.launches == launches + 1
+            assert torch.equal(out, resample_normalize(x, scalars, 256))
+            assert (out - ref).abs().max().item() <= 1e-4, (shapes, mode)
+            out16 = resample_normalize(x, scalars, 256, out_dtype=torch.bfloat16)
+            assert (out16.float() - ref).abs().max().item() <= 3e-2, (shapes, mode)
 
 
 @pytest.mark.cuda

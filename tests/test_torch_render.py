@@ -77,7 +77,59 @@ def constant_depth(res):
     return verts, faces
 
 
-def assert_buffers_equal(out, ref, atol=1e-4, near_ties=0.0):
+def soup(seed, n_tris, lo, hi, z=None):
+    """n_tris triangles with corners uniform in [lo, hi)^2: depth uniform in
+    [0, 10), or the constant z."""
+    rng = np.random.default_rng(seed)
+    verts = rng.uniform(lo, hi, (3 * n_tris, 3)).astype(np.float32)
+    verts[:, 2] = rng.uniform(0, 10, 3 * n_tris) if z is None else z
+    return verts, np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
+
+
+def sliver_tips(seed, n_tris, size):
+    """Slivers whose computed area is mostly rounding, each pointing 2-40 px
+    past its tip at a pixel within 3e-5 px of its long edge's line: there
+    fp32 can pass the inside test outside the 1 px + 1e-3 box."""
+    rng = np.random.default_rng(seed)
+    pixel = rng.integers(0, size, (n_tris, 2)).astype(np.float64)
+    phi = rng.uniform(0, 2 * np.pi, n_tris)
+    along = np.stack([np.cos(phi), np.sin(phi)], 1)
+    normal = np.stack([-along[:, 1], along[:, 0]], 1)
+    length = rng.uniform(40, 200, (n_tris, 1))
+    tip = pixel - rng.uniform(2, 40, (n_tris, 1)) * along + rng.uniform(-3e-5, 3e-5, (n_tris, 1)) * normal
+    base = tip - length * along
+    apex = base + rng.uniform(0, 1, (n_tris, 1)) * length * along + 10.0 ** rng.uniform(-7, -4.5, (n_tris, 1)) * normal
+    verts = np.concatenate([np.stack([base, tip, apex], 1), rng.uniform(0, 10, (n_tris, 3, 1))], 2)
+    return verts.reshape(-1, 3).astype(np.float32), np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
+
+
+def adversarial(case, size):
+    """The meshes that stress the kernel's per-tile lists, on a size x size
+    image (ragged: size - 14 x size - 3): (verts, faces, h, w)."""
+    if case == "overflow_constant_depth":  # every tile's list past a batch and a slice, all ties
+        return (*soup(10, 600 if size <= 64 else 4500, -size // 4, size + size // 4, z=1.0), size, size)
+    if case == "overflow":
+        return (*soup(11, 600, -size // 4, size + size // 4), size, size)
+    if case == "off_image":  # partly off the image, negative coordinates
+        return (*soup(12, 80, -size, size * 5 // 8), size, size)
+    if case == "whole_image":  # one triangle over the whole image, under others
+        verts, faces = soup(13, 20, 0, size - 1)
+        big = np.asarray([[-5 * size, -5 * size, 0.5], [11 * size, -5 * size, 0.5], [-5 * size, 11 * size, 0.5]],
+                         np.float32)
+        return np.concatenate([big, verts]), np.concatenate([[[0, 1, 2]], faces + 3]).astype(np.int32), size, size
+    if case == "ragged":  # no side a multiple of a tile; a face count no multiple of a slice
+        return (*soup(14, 70 if size <= 64 else 1031, -5, size + 5), size - 14, size - 3)
+    if case == "empty":
+        return soup(15, 1, 0, 1)[0], np.zeros((0, 3), np.int32), size, size
+    if case == "sliver_tips":  # pixels inside slivers outside their 1 px + 1e-3 box
+        return (*sliver_tips(19, 500 if size <= 64 else 2000, size), size, size)
+    raise KeyError(case)
+
+
+ADVERSARIAL = ("overflow_constant_depth", "overflow", "off_image", "whole_image", "ragged", "empty", "sliver_tips")
+
+
+def assert_buffers_equal(out, ref, atol=1e-4, near_ties=0.0, covered=True):
     """Triangle ids identical, depth and barycentrics within atol where
     covered.
 
@@ -90,7 +142,7 @@ def assert_buffers_equal(out, ref, atol=1e-4, near_ties=0.0):
     depth, tri_id, bary = (np.asarray(t) for t in out)
     r_depth, r_tri_id, r_bary = (np.asarray(t) for t in ref)
     cov = r_tri_id >= 0
-    assert cov.any()
+    assert cov.any() == covered
     np.testing.assert_array_equal(tri_id >= 0, cov)
     flipped = tri_id != r_tri_id
     assert flipped.sum() <= near_ties * cov.sum(), (flipped.sum(), cov.sum())
@@ -98,6 +150,28 @@ def assert_buffers_equal(out, ref, atol=1e-4, near_ties=0.0):
     same = cov & ~flipped
     np.testing.assert_allclose(bary[same], r_bary[same], atol=atol)
     np.testing.assert_array_equal(depth[~cov], r_depth[~cov])
+
+
+def assert_flips_are_ties(verts, faces, out, ref):
+    """Where the ids differ, the reference's winner passes the port's inside
+    test at that pixel with a z within an ulp of the port's winning z, and
+    the two depths agree within an ulp: each flip is a tie that rounding
+    decided."""
+    depth, tri_id = np.asarray(out[0]), np.asarray(out[1])
+    r_depth, r_tri_id = np.asarray(ref[0]), np.asarray(ref[1])
+    y, x = np.nonzero(tri_id != r_tri_id)
+    tri = verts[faces[r_tri_id[y, x]]]
+    px, py = x.astype(np.float32), y.astype(np.float32)
+    (x0, y0, z0), (x1, y1, z1), (x2, y2, z2) = (tri[:, k].T for k in range(3))
+    inv_area = np.float32(1) / ((x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0))
+    w0 = ((x1 - px) * (y2 - py) - (x2 - px) * (y1 - py)) * inv_area
+    w1 = ((x2 - px) * (y0 - py) - (x0 - px) * (y2 - py)) * inv_area
+    w2 = np.float32(1) - w0 - w1
+    z = w0 * z0 + w1 * z1 + w2 * z2
+    ulp = np.spacing(np.abs(depth[y, x]))
+    assert np.all((w0 >= -1e-5) & (w1 >= -1e-5) & (w2 >= -1e-5))
+    assert np.all(np.abs(z - depth[y, x]) <= ulp), np.abs(z - depth[y, x]).max()
+    assert np.all(np.abs(r_depth[y, x] - depth[y, x]) <= ulp)
 
 
 def port_raster(verts, faces, h, w):
@@ -134,6 +208,171 @@ def test_rasterize_plain_matches_xla(case):
     # at constant depth every overlap is a tie that an ulp decides
     near_ties = 0.15 if case.startswith("constant") else 1e-3
     assert_buffers_equal(port_raster(verts, faces, h, w), xla_raster(verts, faces, h, w), near_ties=near_ties)
+
+
+@pytest.mark.parametrize("case", [c for c in ADVERSARIAL if c != "sliver_tips"])
+def test_rasterize_plain_matches_xla_adversarial(case):
+    """The kernel's stress meshes at 64². Under 600 triangles of one depth
+    every pixel is a tie that an ulp of XLA's FMA contraction decides, so
+    there ids may differ, but only where the two winners' depths tie within
+    an ulp. (The sliver tips are held against every pair evaluated instead:
+    the pixels they cover are rounding, which XLA's contraction decides
+    otherwise on 2 of 4,096 pixels.)"""
+    verts, faces, h, w = adversarial(case, 64)
+    out, ref = port_raster(verts, faces, h, w), xla_raster(verts, faces, h, w)
+    near_ties = 0.6 if case == "overflow_constant_depth" else 1e-3  # 54.2% flip there
+    assert_buffers_equal(out, ref, near_ties=near_ties, covered=case != "empty")
+    assert_flips_are_ties(verts, faces, out, ref)
+
+
+def unculled_raster(verts, faces, h, w):
+    """The plain version's arithmetic on every (pixel, triangle) pair, in the
+    caller's order, strict z > best: no box, no strips."""
+    tri = torch.from_numpy(verts)[torch.from_numpy(faces).long()]
+    (x0, y0, z0), (x1, y1, z1), (x2, y2, z2) = (tri[:, k].unbind(-1) for k in range(3))
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    ok = torch.abs(area) > 1e-12
+    inv_area = torch.where(ok, 1.0 / area, torch.zeros_like(area))
+    px, py = torch.arange(w, dtype=torch.float32)[None, :], torch.arange(h, dtype=torch.float32)[:, None]
+    depth, tri_id, bary = torch.full((h, w), -1e8), torch.full((h, w), -1, dtype=torch.int32), torch.zeros((h, w, 3))
+    for t in torch.nonzero(ok).flatten().tolist():
+        w0 = ((x1[t] - px) * (y2[t] - py) - (x2[t] - px) * (y1[t] - py)) * inv_area[t]
+        w1 = ((x2[t] - px) * (y0[t] - py) - (x0[t] - px) * (y2[t] - py)) * inv_area[t]
+        w2 = 1.0 - w0 - w1
+        z = w0 * z0[t] + w1 * z1[t] + w2 * z2[t]
+        take = (w0 >= -1e-5) & (w1 >= -1e-5) & (w2 >= -1e-5) & (z > depth)
+        depth = torch.where(take, z, depth)
+        tri_id = torch.where(take, torch.tensor(t, dtype=torch.int32), tri_id)
+        bary = torch.where(take[..., None], torch.stack([w0, w1, w2], -1), bary)
+    return depth.numpy(), tri_id.numpy(), bary.numpy()
+
+
+@pytest.mark.parametrize("case", ["sliver_tips", "overflow", "whole_image", "ragged"])
+def test_rasterize_box_cull_is_sound(case):
+    """The plain version tests a triangle only in the strips its widened box
+    meets, and the kernel only at the pixels inside that box. Against every
+    pair evaluated (same arithmetic, no culling), the buffers are equal on
+    every pixel. The sliver tips hold winning pixels outside the 1 px + 1e-3
+    box, which only the whole-image box of box_margin keeps."""
+    verts, faces, h, w = adversarial(case, 64)
+    ref = unculled_raster(verts, faces, h, w)
+    for a, b in zip(port_raster(verts, faces, h, w), ref):
+        np.testing.assert_array_equal(a, b)
+    if case == "sliver_tips":
+        tri = verts[faces]
+        lo, hi = tri[:, :, :2].min(1), tri[:, :, :2].max(1)
+        margin = 1.0 + 1e-3 * (hi - lo).max(1, keepdims=True)
+        won = ref[1][ref[1] >= 0]
+        yx = np.argwhere(ref[1] >= 0)
+        beyond = np.any((yx[:, ::-1] < lo[won] - margin[won]) | (yx[:, ::-1] > hi[won] + margin[won]), axis=1)
+        assert beyond.sum() >= 3, beyond.sum()
+
+
+def merge_key(z, ids):
+    """The kernel's merge key (csrc/rasterize.cu::merge_key) in numpy: z as an
+    order-preserving unsigned, -0 folded into +0, above ~id."""
+    u = (np.asarray(z, np.float32) + np.float32(0.0)).view(np.uint32).astype(np.uint64)
+    u = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return (u << np.uint64(32)) | (~np.asarray(ids, np.int64) & 0xFFFFFFFF).astype(np.uint64)
+
+
+@pytest.mark.parametrize("case", ["constant_depth", "signed_zero"])
+def test_rasterize_slice_merge_equals_ordered_scan(case):
+    """The kernel rasterizes slices of the caller's order apart and keeps, per
+    pixel, the largest merge key (larger z, then lower id). On ties at one
+    depth, and between -0 and +0, that picks the triangle the ordered strict
+    z > best scan picks: the plain version over slices of 7 triangles, merged
+    so, equals the plain version over all of them."""
+    if case == "constant_depth":
+        verts, faces = soup(16, 40, -8, 40, z=1.0)
+    else:  # overlapping triangles at -0 and +0, in both orders
+        verts, faces = soup(17, 40, -8, 40, z=0.0)
+        verts[faces[::2].ravel(), 2] = -0.0
+    h, w = 32, 37
+    ref = port_raster(verts, faces, h, w)
+    best = np.zeros((h, w), np.uint64)
+    for lo in range(0, len(faces), 7):
+        depth, tri_id, _ = port_raster(verts, faces[lo : lo + 7], h, w)
+        hit = tri_id >= 0
+        best = np.where(hit, np.maximum(best, merge_key(depth, np.where(hit, tri_id + lo, 0))), best)
+    ids = np.where(best > 0, ~(best & np.uint64(0xFFFFFFFF)).astype(np.int64) & 0xFFFFFFFF, -1)
+    assert (ref[1] >= 0).sum() > 100 and len(np.unique(ref[1])) > 10
+    np.testing.assert_array_equal(ids, ref[1])
+
+
+def test_rasterize_region_cull_is_sound():
+    """The kernel skips a triangle for a warp's 16x8 pixels when an edge
+    function lies below -margin at the region's four corners
+    (csrc/rasterize.cu region_outside, mirrored here in numpy fp32). On
+    random triangles near the region, slivers and coarse floats among them,
+    and on triangles with an edge within the tolerance of the region's
+    corner, no skipped region holds a pixel that passes the kernel's inside
+    test. (Without the margin's rounding term, or with its tolerance term
+    cut to half the 1e-5 tolerance, regions holding such a pixel are skipped.)"""
+    f32, eps = np.float32, np.float32(1e-5)
+    rng = np.random.default_rng(18)
+    n = 40000
+    kind = rng.integers(0, 4, n)[:, None]
+    a = rng.uniform(-40, 80, (n, 2))
+    d1 = rng.normal(size=(n, 2)) * np.where(kind == 0, 30, np.where(kind == 1, 300, 5))
+    d2 = d1 * rng.uniform(0, 1, (n, 1)) + rng.normal(size=(n, 2)) * 10.0 ** rng.uniform(-7, 1, (n, 1))
+    v = np.stack([a, a + d1, a + d2], 1)
+    corner = v[np.arange(n), rng.integers(0, 3, n)]
+    rx0 = np.floor(corner[:, 0] + rng.integers(-20, 5, n))
+    ry0 = np.floor(corner[:, 1] + rng.integers(-10, 3, n))
+    # and triangles with one edge within the -1e-5 tolerance of the region's
+    # last pixel c, the region wholly on the edge's outer side: c passes the
+    # inside test with a weight in (-2e-5, 0), so only the margin keeps the
+    # region (edge 0, 1 or 2 by the order of the corners)
+    m = n // 2
+    phi = rng.uniform(0.2, 1.4, m)
+    normal = np.stack([np.cos(phi), np.sin(phi)], 1)  # into the triangle, away from the region
+    along, half = np.stack([-normal[:, 1], normal[:, 0]], 1), rng.uniform(20, 200, (m, 1))
+    c = np.floor(rng.uniform(-40, 80, (m, 2)))
+    apex = np.where(rng.uniform(size=(m, 1)) < 0.5, half, 10.0 ** rng.uniform(-3, 0, (m, 1)))  # or slivers
+    offset = rng.uniform(0, 2e-5, (m, 1)) * apex  # c's weight is -offset / apex
+    tri = np.stack([c + apex * normal, c + half * along + offset * normal, c - half * along + offset * normal], 1)
+    order = rng.integers(0, 3, m)
+    tri = np.stack([np.roll(t, k, axis=0) for t, k in zip(tri, order)])
+    v = np.concatenate([v, tri]).astype(f32)
+    rx0, ry0 = np.concatenate([rx0, c[:, 0] - 15]).astype(f32), np.concatenate([ry0, c[:, 1] - 7]).astype(f32)
+    v[np.concatenate([kind[:, 0] == 3, np.zeros(m, bool)])] += f32(3e4)
+    rx0[: n][kind[:, 0] == 3] += f32(3e4)
+    ry0[: n][kind[:, 0] == 3] += f32(3e4)
+    n += m
+    x0, y0, x1, y1, x2, y2 = (v[:, k // 2, k % 2] for k in range(6))
+    with np.errstate(all="ignore"):
+        area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+        ok = np.abs(area) > f32(1e-12)
+        inv = np.where(ok, f32(1) / area, f32(0)).astype(f32)
+        s = np.where(area > 0, f32(1), f32(-1)).astype(f32)
+        X = [np.stack([xk - rx0, xk - (rx0 + f32(15))]) for xk in (x0, x1, x2)]
+        Y = [np.stack([yk - ry0, yk - (ry0 + f32(7))]) for yk in (y0, y1, y2)]
+        mx = [np.abs(t).max(0) for t in X]
+        my = [np.abs(t).max(0) for t in Y]
+        ma = np.abs((x1 - x0) * (y2 - y0)) + np.abs((x2 - x0) * (y1 - y0))
+        margin = f32(2) * eps * np.abs(area) + f32(2.0**-19) * (
+            mx[1] * my[2] + mx[2] * my[1] + mx[2] * my[0] + mx[0] * my[2] + mx[0] * my[1] + mx[1] * my[0] + ma)
+
+        def edge_max(xa, yb, xc, yd):
+            return np.max([s * (xa[i] * yb[j] - xc[i] * yd[j]) for i in range(2) for j in range(2)], axis=0)
+
+        culled = ok & np.isfinite(area) & ((edge_max(X[1], Y[2], X[2], Y[1]) < -margin)
+                                           | (edge_max(X[2], Y[0], X[0], Y[2]) < -margin)
+                                           | (edge_max(X[0], Y[1], X[1], Y[0]) < -margin))
+        inside_culled = 0
+        for dy in range(8):
+            for dx in range(16):
+                px, py = rx0 + f32(dx), ry0 + f32(dy)
+                w0 = ((x1 - px) * (y2 - py) - (x2 - px) * (y1 - py)) * inv
+                w1 = ((x2 - px) * (y0 - py) - (x0 - px) * (y2 - py)) * inv
+                w2 = (f32(1) - w0) - w1
+                inside = ok & (w0 >= -eps) & (w1 >= -eps) & (w2 >= -eps)
+                inside_culled += int((culled & inside).sum())
+        near_inside = inside[n - m :].sum()  # at c = (rx0 + 15, ry0 + 7), the loops' last pixel
+    assert culled.sum() > n // 10
+    assert inside_culled == 0
+    assert int(near_inside) > m // 4  # the constructed triangles put c inside, by a hair
 
 
 def test_rasterize_plain_matches_pallas_interpret():
@@ -374,11 +613,14 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "case", ["triangles_16x128", "flame_256x256", "flame_512x640", "uv_spherical_256", "constant_depth_256"]
+    "case",
+    ["triangles_16x128", "flame_256x256", "flame_512x640", "uv_spherical_256", "constant_depth_256",
+     *(f"{c}_256" for c in ADVERSARIAL)],
 )
 def test_rasterize_kernel_matches_plain(cuda, case):
     """Triangle ids identical on every pixel; depth and barycentrics within
-    1e-4 where covered; one launch per call."""
+    1e-4 everywhere (expected: equal); the same bits on a second launch; one
+    launch per call."""
     if case == "triangles_16x128":
         (verts, faces), (h, w) = random_triangles(), (16, 128)
     elif case.startswith("flame"):
@@ -386,14 +628,20 @@ def test_rasterize_kernel_matches_plain(cuda, case):
         verts, faces = flame_screen((h, w))
     elif case == "uv_spherical_256":
         (verts, faces), (h, w) = spherical_uv(256), (256, 256)
-    else:
+    elif case == "constant_depth_256":
         (verts, faces), (h, w) = constant_depth(256), (256, 256)
+    else:
+        verts, faces, h, w = adversarial(case[: -len("_256")], 256)
     v, f = torch.from_numpy(verts).to(cuda), torch.from_numpy(faces).to(cuda)
     before = rasterize_buffers.launches
     out = rasterize_buffers(v, f, h, w)
     assert rasterize_buffers.launches == before + 1
+    again = rasterize_buffers(v, f, h, w)
     ref = rasterize_buffers_reference(v, f, h, w)
-    assert_buffers_equal([t.cpu() for t in out], [t.cpu() for t in ref])
+    assert_buffers_equal([t.cpu() for t in out], [t.cpu() for t in ref], covered=len(faces) > 0)
+    for a, b, r in zip(out, again, ref):
+        assert a.shape == r.shape and (a.double() - r.double()).abs().max().item() <= 1e-4
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 @pytest.mark.cuda
