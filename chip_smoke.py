@@ -10,9 +10,14 @@ use. Phases, each of which asserts (any failure exits non-zero):
 
   1. the card's name and power limit, the torch and CUDA versions;
   2. build the kernels (one nvcc per source, in parallel), report the seconds
-     and the blendshape, rasterizer and resample kernels' registers, shared
-     memory and spills;
-  3. the normalize and blendshape kernels against their plain PyTorch
+     and the blendshape, rasterizer, resample and normalize kernels'
+     registers, shared memory and spills;
+  3. the normalize kernel bit for bit against its plain version, fp32 and
+     bf16 output (and the bf16 output against the fp32 one cast), in every
+     mode, on predict_batch's (256, 256, 256, 3) batch, ragged sizes and
+     unaligned batch slices; timed in both types beside
+     ``torch.addcmul`` and the bf16 route it replaces (the fp32 kernel, then
+     the cast). The normalize and blendshape kernels against their plain PyTorch
      versions on the card, at the main path's shapes, with CUDA-event times
      (median of 20 after warm-up, L2 flushed before each launch; each
      kernel and library call timed twice, queued behind a spin of the card
@@ -24,7 +29,8 @@ use. Phases, each of which asserts (any failure exits non-zero):
      and the inference batch 256;
   3b. the crop/resize/normalize kernel against its plain version: area
      downscale, linear upscale, resize mode with mixed scales, loose boxes,
-     Hmax 640 and 1088, both layouts, fp32 and bf16, a whole 1920x1080 frame
+     Hmax 640 and 1088, both layouts, fp32 and bf16 (bf16 bit for bit the
+     fp32 output cast), a whole 1920x1080 frame
      (f = 7.5), a 2-pixel crop, a ragged Wmax (the byte path), the same bits
      on a second launch, an exact identity crop; the bytes one call allocates
      beyond its output (none); timed at B=64 on 1280x720 frames with face
@@ -36,6 +42,9 @@ use. Phases, each of which asserts (any failure exits non-zero):
      slice, all ties), triangles partly off-image, one triangle over the
      whole image, 1,031 triangles on a ragged 250x333 image, no triangles,
      2,000 sliver tips (pixels inside slivers past their 1 px + 1e-3 box);
+     then its one departure, a NaN z (the kernel skips that triangle alone:
+     bit for bit the plain version on the mesh without it), and an infinite x
+     corner (bit for bit the plain version);
      timed at 512x640 (the PNCC render) and on the UV table at 256²;
   4. ``FaceMeshPredictor.predict_batch`` (resnet50 DAD-3DNet, 256x256, random
      weights in the JAX package's initialisation scheme from a seeded
@@ -47,10 +56,13 @@ use. Phases, each of which asserts (any failure exits non-zero):
      them; ``predict_images`` on a CUDA uint8 tensor (the device branch);
   4c. ``PNCCEstimator`` and ``UVTextureCreator`` on a 4b frame and a seeded
      head that fills 60% of the mesh's image, against the CPU;
-  5. ``predict_batch`` at B=256, fp32 and bf16 trunk: img/s from CUDA events,
-     median of 5 after warm-up;
+  5. ``predict_batch`` at B=256, fp32 and bf16 trunk: one normalize launch
+     each, writing fp32 and bf16; img/s from CUDA events, median of 5 after
+     warm-up; the bf16 trunk's outputs bit for bit those of the route through
+     the fp32 normalize and autocast's cast (cuDNN deterministic);
   5b. ``predict_frames`` on 256 1280x720 frames in batches of 64, fp32 and
-     bf16 trunk, img/s, median of 5 after warm-up, and the host's share;
+     bf16 trunk, img/s, median of 5 after warm-up, and the host's share; the
+     bf16 trunk's outputs on 64 of them bit for bit the fp32-resample route's;
   3d. the blendshape backward kernel against its plain version at B = 7,
      64 and 128 (d_betas, d_template, d_shapedirs; the same bits on a second
      launch), timed at the train batch B = 64 against one library call;
@@ -79,6 +91,8 @@ last line is
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -91,6 +105,7 @@ import torch
 
 from dad3dheads_tpu_torch import assets
 from dad3dheads_tpu_torch.api import FaceMeshPredictor
+from dad3dheads_tpu_torch.api import predictor as predictor_module
 from dad3dheads_tpu_torch.core.flame import FlameModel
 from dad3dheads_tpu_torch.core.head_mesh import HeadMesh
 from dad3dheads_tpu_torch.kernel_timing import (
@@ -111,7 +126,7 @@ from dad3dheads_tpu_torch.ops.blendshapes import (
     blend_shapes_fused_backward_reference,
     blend_shapes_fused_reference,
 )
-from dad3dheads_tpu_torch.ops.preprocess import normalize_images, normalize_images_reference
+from dad3dheads_tpu_torch.ops.preprocess import normalize_images, normalize_images_reference, normalize_scale_bias
 from dad3dheads_tpu_torch.ops.preprocess_device import frame_scalars, pack_frames_host
 from dad3dheads_tpu_torch.ops.resample import resample_normalize, resample_normalize_reference
 from dad3dheads_tpu_torch.render import PNCCEstimator, UVTextureCreator
@@ -128,6 +143,7 @@ FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 TF32_FLOPS = 495e12  # dense TF32 on the tensor cores
 TF32X3 = 3  # tensor-core products per fp32 product in the blendshape kernels (csrc/tf32x3.cuh)
 TRAIN_B = 64  # configs/train_stage/flame_landmarks.yaml
+MODES = ("imagenet", "mean", "none")
 KERNELS = ("blend_shapes_fused", "normalize_images", "resample_normalize", "rasterize_buffers",
            "blend_shapes_fused_backward")
 COUNTED = (blend_shapes_fused, normalize_images, resample_normalize, rasterize_buffers, blend_shapes_fused_backward)
@@ -150,6 +166,7 @@ def blend_bounds(n_bytes: float, n_mac: float) -> tuple[tuple[float, str], float
 def reset_launches() -> None:
     for fn in COUNTED:
         fn.launches = 0
+    normalize_images.bf16_launches = 0
 
 
 def read_launches() -> dict:
@@ -177,38 +194,69 @@ def phase2_build() -> None:
     for line in cuda_lib.build_log_path().read_text().splitlines():
         if line.startswith("== "):
             source = line[3:]
-        elif source in ("blendshapes.cu", "blendshapes_bwd.cu", "rasterize.cu", "resample.cu") and (
+        elif source in ("blendshapes.cu", "blendshapes_bwd.cu", "rasterize.cu", "resample.cu", "normalize.cu") and (
                 "Compiling entry" in line or "Used" in line or "spill" in line):
             print(f"[build] {source}: {line.strip()}")
+
+
+def phase3_normalize(flush: torch.Tensor) -> dict:
+    """Kernel 2, the uint8 normalize: bit for bit against its plain version in
+    fp32 and bf16 (the bf16 output also against the fp32 output cast), every
+    mode; timed at predict_batch's shape in both types, beside torch.addcmul
+    (the fp32 function in one call, contracted to an FMA: it differs in the
+    last bit) and the bf16 route it replaces (the fp32 kernel, then the
+    cast, as autocast cast it before the stem conv)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    # (3, 250, 131, 3) and (1, 37, 41, 3) end in ragged tails (n % 16 = 14, 7)
+    cases = {str(shape): torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
+             for shape in ((BENCH_B, IMG, IMG, 3), (3, 250, 131, 3), (1, 37, 41, 3))}
+    # batch slices off 16-byte alignment (the scalar kernel)
+    for shape in ((4, 250, 131, 3), (4, 250, 130, 3)):
+        x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)[1:]
+        cases[f"slice {tuple(x.shape)}, {x.data_ptr() % 16} bytes past 16"] = x
+    err = 0.0
+    for name, x in cases.items():
+        for mode in MODES:
+            out32, out16 = normalize_images(x, mode), normalize_images(x, mode, out_dtype=torch.bfloat16)
+            ref32, ref16 = normalize_images_reference(x, mode), normalize_images_reference(x, mode, torch.bfloat16)
+            same = torch.equal(out32, ref32) and torch.equal(out16, ref16) and torch.equal(out16, out32.to(torch.bfloat16))
+            e = max((out32 - ref32).abs().max().item(), (out16.float() - ref16.float()).abs().max().item())
+            print(f"[normalize] {name} {mode}: fp32 and bf16 bit for bit the plain version's {same} "
+                  f"(max abs diff {e:.3g})")
+            assert same and out32.dtype == torch.float32 and out16.dtype == torch.bfloat16, (name, mode, e)
+            err = max(err, e)
+
+    x = cases[str((BENCH_B, IMG, IMG, 3))]
+    n = x.numel()
+    timed = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        k_ms, k_host_ms = kernel_ms(lambda: normalize_images(x, out_dtype=dtype), flush)
+        p_ms = median_ms(lambda: normalize_images_reference(x, "imagenet", dtype), flush=flush, spin=True)
+        n_bytes = n * (1 + torch.finfo(dtype).bits // 8)
+        b_ms, b_by = bound(n_bytes, 2 * n)
+        print(f"[normalize] {tuple(x.shape)} imagenet -> {dtype}: kernel {k_ms:.4f} ms ({k_host_ms:.4f} with the "
+              f"host's dispatch), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {n_bytes / 1e6:.1f} MB), "
+              f"{b_ms / k_ms:.1%} of it")
+        timed[dtype] = {"ms": k_ms, "ms_host": k_host_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+    scale, bias = (torch.from_numpy(a).to(dev) for a in normalize_scale_bias("imagenet"))
+    lib_err = (normalize_images(x) - torch.addcmul(bias, x, scale)).abs().max().item()
+    lib_ms, lib_host_ms = kernel_ms(lambda: torch.addcmul(bias, x, scale), flush)
+    route_ms, route_host_ms = kernel_ms(lambda: normalize_images(x).to(torch.bfloat16), flush)
+    print(f"[normalize] torch.addcmul (fp32, one FMA: max abs diff {lib_err:.3g}) {lib_ms:.4f} ms ({lib_host_ms:.4f} "
+          f"with the host's dispatch); the replaced bf16 route, fp32 kernel then .to(bfloat16): {route_ms:.4f} ms "
+          f"({route_host_ms:.4f} with the host's dispatch)")
+    return {"normalize_images": {
+        "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/normalize.cu",
+        "replaces": "dad3dheads_tpu/ops/preprocess_pallas.py:30",
+        "max_abs_err": err, **timed[torch.float32], "library_ms": lib_ms, "library_ms_host": lib_host_ms,
+        "bf16": timed[torch.bfloat16], "bf16_route_replaced": {"ms": route_ms, "ms_host": route_host_ms},
+        "shape": f"{tuple(x.shape)} fp32; bf16 under the bf16 trunk"}}
 
 
 def phase3_kernels(flame: FlameModel, flush: torch.Tensor) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(SEED)
-
-    # kernel 2: uint8 normalize
-    norm_err = 0.0
-    shapes = [(BENCH_B, IMG, IMG, 3), (3, 250, 131, 3)]
-    for shape in shapes:
-        x = torch.randint(0, 256, shape, generator=gen, dtype=torch.uint8).to(dev)
-        for mode in ("imagenet", "mean", "none"):
-            err = (normalize_images(x, mode) - normalize_images_reference(x, mode)).abs().max().item()
-            print(f"[normalize] {shape} {mode}: max abs diff {err:.3g}")
-            assert err <= 1e-6, (shape, mode, err)
-            norm_err = max(norm_err, err)
-    # a batch slice is not 16-byte aligned: the kernel's scalar path
-    x = torch.randint(0, 256, (4, 250, 131, 3), generator=gen, dtype=torch.uint8).to(dev)[1:]
-    err = (normalize_images(x) - normalize_images_reference(x)).abs().max().item()
-    print(f"[normalize] unaligned slice {tuple(x.shape)}: max abs diff {err:.3g}")
-    assert err <= 1e-6, err
-    norm_err = max(norm_err, err)
-    x = torch.randint(0, 256, shapes[0], generator=gen, dtype=torch.uint8).to(dev)
-    norm_ms, norm_host_ms = kernel_ms(lambda: normalize_images(x), flush)
-    norm_plain_ms = median_ms(lambda: normalize_images_reference(x), flush=flush, spin=True)
-    print(f"[normalize] {shapes[0]} imagenet: kernel {norm_ms:.4f} ms ({norm_host_ms:.4f} with the host's "
-          f"dispatch), plain {norm_plain_ms:.4f} ms")
-    n = x.numel()
-    norm_bound = bound(n * (1 + 4), 2 * n)
 
     # kernel 1: fused blendshapes at the full FLAME width; the library call
     # for the same function is one fp32 GEMM with the add fused, TF32 off
@@ -250,12 +298,7 @@ def phase3_kernels(flame: FlameModel, flush: torch.Tensor) -> dict:
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": blend_lib_ms, "library_ms_host": blend_lib_host_ms,
             "fp32_bound_ms": simt_ms,
             "shape": f"B={BENCH_B} K={K} N={N}"},
-        "normalize_images": {
-            "route": "cuda", "source": "dad3dheads_tpu_torch/csrc/normalize.cu",
-            "replaces": "dad3dheads_tpu/ops/preprocess_pallas.py:30",
-            "max_abs_err": norm_err, "ms": norm_ms, "ms_host": norm_host_ms, "plain_ms": norm_plain_ms,
-            "bound_ms": norm_bound[0], "bound_by": norm_bound[1], "library_ms": None, "library_ms_host": None,
-            "shape": f"{shapes[0]}"},
+        **phase3_normalize(flush),
     }
 
 
@@ -294,10 +337,11 @@ def check_resample(name: str, x: torch.Tensor, scalars: torch.Tensor) -> tuple[f
     out16 = resample_normalize(x, scalars, IMG, out_dtype=torch.bfloat16)
     e32 = (out32 - ref).abs().max().item()
     e16 = (out16.float() - ref).abs().max().item()
+    cast = torch.equal(out16, out32.to(torch.bfloat16))
     print(f"[resample] {name}: max abs diff fp32 {e32:.3g}, bf16 {e16:.3g}, second launch identical "
-          f"{torch.equal(out32, again)}")
+          f"{torch.equal(out32, again)}, bf16 bit for bit the fp32 output cast {cast}")
     assert out32.shape == (x.shape[0], IMG, IMG, 3) and out16.dtype == torch.bfloat16
-    assert e32 <= 1e-4 and e16 <= 3e-2 and torch.equal(out32, again), (name, e32, e16)
+    assert e32 <= 1e-4 and e16 <= 3e-2 and torch.equal(out32, again) and cast, (name, e32, e16)
     return e32, e16
 
 
@@ -345,6 +389,7 @@ def phase3b_resample(flush: torch.Tensor) -> dict:
     buf, sizes, packed_boxes = frames_batch(np.random.default_rng(SEED + 10), FRAMES_B)
     x = torch.from_numpy(buf).to(dev)
     scalars = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(packed_boxes), IMG)[0].to(dev)
+    gc.collect()  # no cycle of card tensors is freed inside the measured call
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # bytes asked of the caching allocator (its blocks may be larger)
@@ -432,6 +477,45 @@ def sliver_tips(rng, n: int, size: int) -> tuple[np.ndarray, np.ndarray]:
     return verts.reshape(-1, 3).astype(np.float32), np.arange(3 * n, dtype=np.int32).reshape(n, 3)
 
 
+def non_finite_mesh(case: str, size: int = IMG) -> tuple[np.ndarray, np.ndarray, int]:
+    """1,100 triangles, two of the XLA rasterizer's chunks of 1,024: chunk 0
+    in front all over the image, chunk 1 behind over its left half, and
+    triangle 3 over most of the image with a corner made non-finite: z = NaN
+    ("nan_z") or x = inf ("inf_x"). Returns (verts, faces, 3)."""
+    rng = np.random.default_rng(SEED + 21)
+    n0, n1 = 3 * 1024, 3 * 76
+    verts = rng.uniform(-size // 8, size + size // 8, (n0 + n1, 3)).astype(np.float32)
+    verts[:n0, 2] = rng.uniform(5, 10, n0)
+    verts[n0:, 0] = rng.uniform(-size // 8, size // 2, n1)
+    verts[n0:, 2] = rng.uniform(0, 5, n1)
+    verts[9:12] = np.asarray([[0.05, 0.05, 7.0], [0.95, 0.1, 7.0], [0.45, 0.95, 7.0]], np.float32) * [size, size, 1]
+    verts[10, 2 if case == "nan_z" else 0] = np.nan if case == "nan_z" else np.inf
+    return verts, np.arange(n0 + n1, dtype=np.int32).reshape(-1, 3), 3
+
+
+def check_non_finite(case: str) -> None:
+    """The kernel on a non-finite vertex: with a NaN z it skips that triangle
+    alone, so it equals the plain version on the mesh without it (ids mapped
+    back), where the plain version voids the NaN triangle's chunk of 1,024;
+    with an infinite x corner it equals the plain version on the mesh."""
+    dev = torch.device("cuda")
+    verts, faces, k = non_finite_mesh(case)
+    vt, ft = torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev)
+    out = rasterize_buffers(vt, ft, IMG, IMG)
+    full = rasterize_buffers_reference(vt, ft, IMG, IMG)
+    if case == "nan_z":
+        depth, tri_id, bary = rasterize_buffers_reference(vt, torch.cat([ft[:k], ft[k + 1:]]), IMG, IMG)
+        ref = (depth, torch.where(tri_id >= k, tri_id + 1, tri_id), bary)
+    else:
+        ref = full
+    same = all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(out, ref))
+    parted = int((out[1] != full[1]).sum().item())
+    print(f"[rasterize] {case}, 1,100 triangles 256x256: bit for bit the plain version on the mesh"
+          f"{' without the NaN triangle' if case == 'nan_z' else ''} {same}; {parted} pixels part from the plain "
+          f"version on the whole mesh")
+    assert same and (parted > 0) == (case == "nan_z"), (case, parted)
+
+
 def phase3c_raster(flame: FlameModel, flush: torch.Tensor) -> dict:
     """Each case: the triangle ids equal the plain version's on every pixel,
     depth and barycentrics within 1e-4 (printed; expected 0), and a second
@@ -453,6 +537,8 @@ def phase3c_raster(flame: FlameModel, flush: torch.Tensor) -> dict:
               f"depth/bary max abs diff {e:.3g}, second launch identical {same_bits}")
         assert flipped == 0 and e <= 1e-4 and same_bits and (covered > 0 or len(faces) == 0), (name, flipped, e)
         err = max(err, e)
+    for case in ("nan_z", "inf_x"):
+        check_non_finite(case)
     timed = {}
     for name in ("flame 512x640", "uv spherical 256x256"):
         verts, faces, h, w = cases[name]
@@ -586,11 +672,56 @@ def phase4c_render(flame: FlameModel, frame: np.ndarray) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def cast_route():
+    """The bf16 trunk's route before its preprocess wrote bf16: the
+    predictor's normalize and resample write fp32, which autocast casts to
+    bf16 before the stem conv. cuDNN deterministic, inside and out, so that
+    two runs differ only by their input."""
+    norm, frames = predictor_module.normalize_images, predictor_module.preprocess_frames_device
+    predictor_module.normalize_images = lambda *a, **kw: norm(*a, **{**kw, "out_dtype": torch.float32})
+    predictor_module.preprocess_frames_device = lambda *a, **kw: frames(*a, **{**kw, "out_dtype": torch.float32})
+    try:
+        yield
+    finally:
+        predictor_module.normalize_images, predictor_module.preprocess_frames_device = norm, frames
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def assert_same_outputs(new, old, tag: str) -> None:
+    """Bit for bit, every key of every result."""
+    pairs = list(zip(new, old)) if isinstance(new, list) else [(new, old)]
+    same = all(np.array_equal(a[key], b[key]) for a, b in pairs for key in b) and len(new) == len(old)
+    print(f"[bf16 route] {tag}: outputs bit for bit those of the fp32 preprocess cast by autocast {same}")
+    assert same, tag
+
+
 def phase5_throughput(pred: FaceMeshPredictor, config: dict) -> FaceMeshPredictor:
     images = np.random.default_rng(SEED + 2).integers(0, 256, (BENCH_B, IMG, IMG, 3), dtype=np.uint8)
     bf16_config = {**config, "model": {**config["model"], "dtype": "bfloat16"}}
     bf16 = FaceMeshPredictor(bf16_config, device="cuda", seed=SEED)
     bf16.model.load_state_dict(pred.model.state_dict())
+    for name, p, bf16_launches in (("fp32", pred, 0), ("bf16", bf16, 1)):
+        reset_launches()
+        p.predict_batch(images)
+        counts = (normalize_images.launches, normalize_images.bf16_launches)
+        print(f"[throughput] predict_batch B={BENCH_B} {name}: normalize launches {counts[0]}, "
+              f"{counts[1]} of them writing bf16")
+        assert counts == (1, bf16_launches), (name, counts)
+    with cudnn_deterministic():
+        new = bf16.predict_batch(images[:SLICE_B])
+        with cast_route():
+            old = bf16.predict_batch(images[:SLICE_B])
+    assert_same_outputs(new, old, f"predict_batch B={SLICE_B}, bf16 trunk")
     outs = {}
     for name, p in (("fp32", pred), ("bf16", bf16)):
         ms = median_ms(lambda: outs.__setitem__(name, p.predict_batch(images)), reps=5, warmup=2)
@@ -607,6 +738,11 @@ def phase5b_frames_throughput(pred: FaceMeshPredictor, bf16: FaceMeshPredictor) 
     sizes_hw = [(720, 1280)] * n
     frames = seeded_frames(rng, sizes_hw[:16]) * (n // 16)
     boxes = face_boxes(rng, sizes_hw)
+    with cudnn_deterministic():
+        new = bf16.predict_frames(frames[:FRAMES_B], bboxes=boxes[:FRAMES_B], batch_size=FRAMES_B)
+        with cast_route():
+            old = bf16.predict_frames(frames[:FRAMES_B], bboxes=boxes[:FRAMES_B], batch_size=FRAMES_B)
+    assert_same_outputs(new, old, f"predict_frames {FRAMES_B} frames 1280x720, bf16 trunk")
     for name, p in (("fp32", pred), ("bf16", bf16)):
         ms = median_ms(lambda: p.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B), reps=5, warmup=1)
         print(f"[throughput] predict_frames {n} frames 1280x720, batches of {FRAMES_B}, {name}: {ms:.2f} ms, "

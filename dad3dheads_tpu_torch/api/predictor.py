@@ -196,10 +196,14 @@ class FaceMeshPredictor:
     # -- the device pipeline -----------------------------------------------
     @torch.inference_mode()
     def _run(self, x: torch.Tensor):
-        """Normalized or uint8 NHWC batch on the device -> decoded outputs."""
+        """Normalized or uint8 NHWC batch on the device -> decoded outputs. A
+        uint8 batch is normalized straight into the trunk's dtype (the bf16
+        trunk then reads it without a cast); other inputs reach it as fp32."""
         if x.dtype == torch.uint8:
-            x = normalize_images(x)
-        return decode_pipeline_outputs(self.model(x.float()), self._stride, self._img_size)
+            x = normalize_images(x, out_dtype=self.model.dtype)
+        elif x.dtype != self.model.dtype:
+            x = x.float()
+        return decode_pipeline_outputs(self.model(x), self._stride, self._img_size)
 
     @torch.inference_mode()
     def _run_packed(self, x: torch.Tensor) -> torch.Tensor:
@@ -215,7 +219,8 @@ class FaceMeshPredictor:
         the preprocess scales and paddings, then landmarks and 3DMM."""
         layout = "planar" if frames.ndim == 3 else "nhwc"
         images, scales, paddings = preprocess_frames_device(
-            frames, sizes, bboxes, self._img_size, "imagenet", self._resize_mode, layout=layout
+            frames, sizes, bboxes, self._img_size, "imagenet", self._resize_mode, layout=layout,
+            out_dtype=self.model.dtype,
         )
         dev = decode_pipeline_outputs(self.model(images), self._stride, self._img_size)
         B = frames.shape[0]

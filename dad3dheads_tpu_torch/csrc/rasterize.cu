@@ -22,8 +22,12 @@
 // anywhere into the inside test (box_margin, which the plain version repeats
 // to cull its rows by). No pixel outside the box passes the test, so kernel
 // and plain agree bit for bit.
-// Where a z is NaN the kernel skips that triangle alone; the XLA and plain
-// versions let it void the other triangles of their chunk at that pixel.
+// The one departure, a NaN z: the kernel skips that triangle alone (a NaN
+// never passes z > best, and the merge never takes it), as if it were not in
+// the mesh. The XLA and plain versions let it void the winner of its chunk of
+// 1,024 triangles of the caller's order at that pixel; the reference's Pallas
+// kernel voids other chunks (128, after a sort by tile), so there is no one
+// chunk rule to copy. tests/test_torch_render.py pins both rules.
 //
 // What bounds it on the H100: the pixel-triangle tests (26 fp32 operations
 // for each pixel inside a triangle's box; at 512x640 the FLAME mesh has

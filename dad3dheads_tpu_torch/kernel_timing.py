@@ -17,8 +17,12 @@ against ``torch.addmm`` and ``torch.matmul`` + ``sum`` (fp32, TF32 off);
 the rasterizer on the FLAME mesh at 512x640 (the PNCC render) and on the
 spherical UV unwrap at 256x256 (the UV table); the crop/resize/normalize
 kernel on 64 planar 1280x720 frames with face boxes (``chip_smoke.py``
-phase 3b's timing shape). The inputs come from the seeded functions below,
-which ``chip_smoke.py`` uses too. Two checkouts are compared by running it
+phase 3b's timing shape); the uint8 normalize on predict_batch's (256, 256,
+256, 3) batch, fp32 output beside ``torch.addcmul`` (the same function in
+one call, contracted to an FMA), bf16 output where the checkout's wrapper
+takes ``out_dtype``, and the bf16 route that output replaces, the fp32
+kernel then ``.to(torch.bfloat16)``, timed as one span. The inputs come
+from the seeded functions below, which ``chip_smoke.py`` uses too. Two checkouts are compared by running it
 on each, one after the other on one card (parent, change, change, parent)::
 
     python3 dad3dheads_tpu_torch/kernel_timing.py [ROOT]
@@ -29,6 +33,7 @@ Needs a CUDA card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -234,6 +239,20 @@ def main(argv: list[str] | None = None) -> int:
     scalars = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(boxes), 256)[0].cuda()
     rows.append(_row("resample_normalize B=64 planar 720x1280 face boxes -> 256x256 fp32",
                      lambda: resample_normalize(x, scalars, 256), None, 0.0, flush))
+
+    # the uint8 normalize at predict_batch's shape
+    from dad3dheads_tpu_torch.ops import preprocess
+
+    x = torch.randint(0, 256, (256, 256, 256, 3), generator=gen, dtype=torch.uint8).cuda()
+    scale, bias = (torch.from_numpy(a).cuda() for a in preprocess.normalize_scale_bias("imagenet"))
+    err = (preprocess.normalize_images(x) - torch.addcmul(bias, x, scale)).abs().max().item()
+    rows.append(_row("normalize (256, 256, 256, 3) -> fp32", lambda: preprocess.normalize_images(x),
+                     lambda: torch.addcmul(bias, x, scale), err, flush))
+    if "out_dtype" in inspect.signature(preprocess.normalize_images).parameters:
+        rows.append(_row("normalize (256, 256, 256, 3) -> bf16",
+                         lambda: preprocess.normalize_images(x, out_dtype=torch.bfloat16), None, 0.0, flush))
+    rows.append(_row("normalize (256, 256, 256, 3) -> fp32, then .to(torch.bfloat16)",
+                     lambda: preprocess.normalize_images(x).to(torch.bfloat16), None, 0.0, flush))
     print(json.dumps({"root": str(root), "card": card, "rows": rows}))
     return 0
 

@@ -136,7 +136,9 @@ class DAD3DNet(nn.Module):
         }
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: (B, H, W, 3) normalized fp32 images (NHWC)."""
+        """x: (B, H, W, 3) normalized images (NHWC) in the trunk's dtype
+        (``self.dtype``): fp32, or bf16, which the bf16 trunk reads as it is
+        (fp32 input to the bf16 trunk is cast by autocast, to the same bits)."""
         x = x.permute(0, 3, 1, 2)  # NCHW view of NHWC memory: channels_last
         with self._trunk_context(x.device.type):
             feats = self.encoder.stages_backbone(x)

@@ -42,8 +42,8 @@ _SIGNATURES = {
     # g, dirs, betas, partial, tmpl_partial, d_betas, d_tmpl, d_dirs (or null), B, K, N,
     # g row stride, dirs row stride, chunk, device, stream
     "d3d_blend_shapes_bwd_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # images, out, B, H, W, scale[3], bias[3], device, stream
-    "d3d_normalize_u8": (_P, _P, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
+    # images, out, B, H, W, out_bf16, scale[3], bias[3], device, stream
+    "d3d_normalize_u8": (_P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
     # frames, scalars, out, B, Hmax, Wmax, S, planar, out_bf16, band, scale[3], bias[3], device, stream
     "d3d_resample_normalize_u8": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _P),
     # vertices, faces, scratch, scratch bytes, depth, tri_id, bary, V, T, H, W, device, stream

@@ -1,5 +1,5 @@
-"""Image preprocessing: the uint8 -> normalized fp32 kernel and the host
-(numpy + cv2) resize/pad and readjustment helpers.
+"""Image preprocessing: the uint8 -> normalized fp32 or bf16 kernel and the
+host (numpy + cv2) resize/pad and readjustment helpers.
 
 Port of ``dad3dheads_tpu/ops/preprocess.py`` and of the normalize kernel of
 ``dad3dheads_tpu/ops/preprocess_pallas.py``. On CUDA tensors
@@ -11,6 +11,7 @@ other dispatch.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -40,44 +41,69 @@ def normalize_scale_bias(normalize: str = "imagenet") -> Tuple[np.ndarray, np.nd
     return scale.astype(np.float32), bias.astype(np.float32)
 
 
-def normalize_images_reference(images_u8: torch.Tensor, normalize: str = "imagenet") -> torch.Tensor:
-    """Plain PyTorch version: (B, H, W, 3) uint8 -> x*scale + bias, fp32."""
+@functools.lru_cache(maxsize=None)
+def _affine_floats(normalize: str) -> Tuple[float, ...]:
+    """scale[0..2], bias[0..2] as Python floats (exact fp32 values), the
+    kernel's arguments, computed once per mode."""
+    scale, bias = normalize_scale_bias(normalize)
+    return (*map(float, scale), *map(float, bias))
+
+
+def check_out_dtype(out_dtype: torch.dtype) -> None:
+    """Raise unless ``out_dtype`` is one the preprocess kernels write."""
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+
+
+def normalize_images_reference(
+    images_u8: torch.Tensor, normalize: str = "imagenet", out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """Plain PyTorch version: (B, H, W, 3) uint8 -> x*scale + bias in fp32,
+    then ``.to(out_dtype)`` (float32 or bfloat16)."""
+    check_out_dtype(out_dtype)
     scale, bias = normalize_scale_bias(normalize)
     dev = images_u8.device
-    return images_u8.float() * torch.from_numpy(scale).to(dev) + torch.from_numpy(bias).to(dev)
+    out = images_u8.float() * torch.from_numpy(scale).to(dev) + torch.from_numpy(bias).to(dev)
+    return out.to(out_dtype)
 
 
-def normalize_images(images_u8: torch.Tensor, normalize: str = "imagenet") -> torch.Tensor:
-    """(B, H, W, 3) uint8 -> normalized fp32 (B, H, W, 3).
+def normalize_images(
+    images_u8: torch.Tensor, normalize: str = "imagenet", out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> normalized (B, H, W, 3) ``out_dtype``: float32,
+    or bfloat16 (the fp32 value rounded to nearest even, as ``.to`` rounds),
+    the bf16 trunk's input.
 
     Any B, H, W. CPU tensors take the plain version; CUDA tensors launch the
     kernel, which takes a contiguous uint8 NHWC tensor and raises on anything
     else. The NHWC result viewed as ``permute(0, 3, 1, 2)`` is a channels_last
     NCHW tensor, the CNN's input layout, with no copy."""
     if images_u8.device.type == "cpu":
-        return normalize_images_reference(images_u8, normalize)
+        return normalize_images_reference(images_u8, normalize, out_dtype)
     if images_u8.device.type != "cuda":
         raise ValueError(f"normalize_images runs on cpu or cuda tensors, got {images_u8.device}")
+    check_out_dtype(out_dtype)
     if images_u8.dtype != torch.uint8:
         raise ValueError(f"expected uint8 images, got {images_u8.dtype}")
     if images_u8.ndim != 4 or images_u8.shape[-1] != 3:
         raise ValueError(f"expected (B, H, W, 3), got {tuple(images_u8.shape)}")
     if not images_u8.is_contiguous():
         raise ValueError("images must be contiguous NHWC")
-    scale, bias = normalize_scale_bias(normalize)
     B, H, W, _ = images_u8.shape
-    out = torch.empty((B, H, W, 3), dtype=torch.float32, device=images_u8.device)
+    bf16 = out_dtype == torch.bfloat16
+    out = torch.empty((B, H, W, 3), dtype=out_dtype, device=images_u8.device)
     device, stream = cuda_lib.launch_args(images_u8)
     code = cuda_lib.library().d3d_normalize_u8(
-        images_u8.data_ptr(), out.data_ptr(), B, H, W,
-        *(float(v) for v in scale), *(float(v) for v in bias), device, stream,
+        images_u8.data_ptr(), out.data_ptr(), B, H, W, int(bf16), *_affine_floats(normalize), device, stream,
     )
     cuda_lib.check(code, "d3d_normalize_u8")
     normalize_images.launches += 1
+    normalize_images.bf16_launches += bf16
     return out
 
 
 normalize_images.launches = 0  # kernel launches; the CPU path does not count
+normalize_images.bf16_launches = 0  # those of them with a bf16 output
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .preprocess import normalize_scale_bias
+from .preprocess import check_out_dtype, normalize_scale_bias
 
 NSCALARS = 10
 # The kernel keeps each output row's source-row sums, 3 * Wmax floats, in
@@ -173,8 +173,7 @@ def resample_normalize(
         )
     if not (frames.is_contiguous() and scalars.is_contiguous()):
         raise ValueError("frames and scalars must be contiguous")
-    if out_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    check_out_dtype(out_dtype)
     band, _ = resample_plan(Wmax)
     scale, bias = normalize_scale_bias(normalize)
     S = int(img_size)

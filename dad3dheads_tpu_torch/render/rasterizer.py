@@ -11,9 +11,16 @@ three barycentric weights are >= -1e-5, triangles of |doubled area| <= 1e-12
 are rejected, the largest z wins (callers flip z for a camera looking down
 -z) and, on an exact tie, the lowest triangle index. Both skip only pairs
 that cannot pass the inside test: those outside the triangle's widened box
-(:func:`box_margin`). Where a z is NaN, the XLA version and the plain one
-(``torch.max``, like ``argmax``) let it void its whole chunk's winner at that
-pixel; the kernel skips that triangle alone.
+(:func:`box_margin`).
+
+The kernel's one departure is a NaN z. There the XLA version lets the NaN
+void the winner of its whole chunk of 1,024 triangles of the caller's order
+at that pixel (``argmax`` picks the NaN, which then loses to the running
+best), and so does the plain version (``torch.max`` over the same chunks);
+the kernel skips the NaN triangle alone. The reference has no single rule to
+copy: its Pallas kernel voids chunks of 128 taken after a sort by tile, which
+are other chunks. A triangle with a non-finite x or y corner passes the
+inside test nowhere (a weight is NaN at every pixel), on every path.
 """
 
 from __future__ import annotations
@@ -79,9 +86,10 @@ def rasterize_buffers_reference(
     chunk: int = 1024,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: for each strip of ``tile_rows`` rows, the
-    triangles whose widened box meets the strip, in the caller's order and in
-    runs of ``chunk``, evaluated for every pixel of the strip at once, with a
-    running per-pixel maximum. The edge functions follow the XLA expression
+    triangles whose widened box meets the strip, in the caller's order and
+    grouped by the XLA version's chunks (triangles ``[c * chunk, (c + 1) *
+    chunk)``), each group evaluated for every pixel of the strip at once, with
+    a running per-pixel maximum. The edge functions follow the XLA expression
     order. Returns depth (H, W) fp32, tri_id (H, W) int32, bary (H, W, 3)."""
     dev = vertices.device
     tri = _corners(vertices, faces)
@@ -104,11 +112,16 @@ def rasterize_buffers_reference(
         py = (row0 + torch.arange(rows, dtype=torch.float32, device=dev))[:, None, None]
         hits = ok & (lo_y - margin <= row0 + rows - 1) & (hi_y + margin >= row0)
         ids = torch.nonzero(hits).flatten()  # ascending: the caller's order
+        # where each of XLA's chunks starts in ids: a NaN z voids its chunk's winner
+        edges = torch.arange(0, faces.shape[0] + chunk, chunk, device=dev)
+        bounds = torch.searchsorted(ids, edges).tolist()
         best_z = depth[row0 : row0 + rows]
         best_id = tri_id[row0 : row0 + rows]
         best_bary = bary[row0 : row0 + rows]
-        for lo in range(0, ids.numel(), chunk):
-            k = ids[lo : lo + chunk]
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            if lo == hi:
+                continue
+            k = ids[lo:hi]
             ax0, ay0, az0 = x0[k], y0[k], z0[k]
             ax1, ay1, az1 = x1[k], y1[k], z1[k]
             ax2, ay2, az2 = x2[k], y2[k], z2[k]

@@ -9,10 +9,13 @@ Drives ``predict_batch`` (256 uint8 images of 256x256), ``predict_frames``
 with the resnet50 DAD-3DNet at its published widths, random weights from a
 seeded generator, fp32 and bf16 trunk. After 3 warm-up calls, one call of
 each is traced with ``torch.profiler``. Prints, per entry point and dtype, the device
-milliseconds of each bucket, the device's busy time (the union of its kernel
-and copy intervals), the call's wall time on the host clock and the idle
-share of that wall. With ``--trace-dir`` it also writes each chrome trace
-there.
+milliseconds of each bucket and their sum, the device's busy time (the union
+of its kernel and copy intervals), the call's wall time on the host clock and
+the idle share of that wall, and the call's first device events in order
+(name and ms), which show what runs between the upload and the stem
+convolution: the normalize kernel and the type it writes, any cast, any
+layout transform of cuDNN's. With ``--trace-dir`` it also writes each chrome
+trace there.
 Needs a CUDA card; imports nothing of JAX.
 """
 
@@ -34,8 +37,8 @@ from .models import randomize_bn_stats
 
 # bucket -> substrings of a kernel or copy name (lowercase), first match wins
 BUCKETS = (
-    ("kernel: resample_normalize", ("resample_rows", "resample_cols")),
-    ("kernel: normalize_images", ("normalize_vec16", "normalize_scalar")),
+    ("kernel: resample_normalize", ("resample_kernel",)),
+    ("kernel: normalize_images", ("normalize_vec_kernel", "normalize_scalar_kernel")),
     ("kernel: blend_shapes_fused", ("blend_shapes_kernel",)),
     ("kernel: blend_shapes_fused_backward", ("dbetas_partial_kernel", "dbetas_reduce_kernel", "ddirs_kernel")),
     ("optimizer (Adam, clip: foreach kernels)", ("multi_tensor_apply", "foreach")),
@@ -48,6 +51,7 @@ BUCKETS = (
     ("max pool", ("max_pool",)),
 )
 OTHER = "elementwise and other"
+FIRST_EVENTS = 12  # device events listed in order from the start of each traced call
 
 
 def bucket_of(name: str) -> str:
@@ -95,9 +99,10 @@ def trace(fn, label: str, trace_dir: str | None) -> dict:
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, f"{label}.json"))
+    first = [(name[:160], (e - s) / 1e3) for name, s, e in sorted(events, key=lambda ev: ev[1])[:FIRST_EVENTS]]
     return {"path": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms,
-            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1]))}
+            "idle_share": 1.0 - busy_ms / wall_ms, "buckets_sum_ms": sum(buckets.values()),
+            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])), "first_events": first}
 
 
 def trace_train_step(dtype: str, seed: int, trace_dir: str | None) -> dict:

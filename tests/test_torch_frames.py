@@ -12,6 +12,7 @@ need it, so that on a machine with a card and no JAX they run with
 ``python -m pytest --noconftest -m cuda tests/test_torch_frames.py``.
 """
 
+import gc
 import json
 import os
 
@@ -333,6 +334,34 @@ def test_predict_frames_without_boxes_matches_jax(predictors):
     assert tp.predict_frames([]) == []
 
 
+def test_predict_frames_feeds_the_bf16_trunk_bf16(monkeypatch):
+    """Under the bf16 trunk the resample kernel's plain version writes bf16
+    (rounded once, at the store), which the trunk reads uncast, and
+    predict_frames is bit-identical to the route through the fp32 resample
+    and autocast's cast."""
+    from dad3dheads_tpu_torch.api import predictor as tpred
+
+    from .test_torch_predictor import trunk_input_dtypes
+
+    pred = tpred.FaceMeshPredictor({"img_size": S, "model": {"backbone": "resnet50", "dtype": "bfloat16"}},
+                                   device="cpu", seed=4)
+    frames = frame_list(34)[:3]
+    boxes = [[0, 0, 90, 70], [5, 10, 60, 100], [-10, -10, 500, 500]]
+    seen, hook = trunk_input_dtypes(pred.model)
+    out = pred.predict_frames(frames, bboxes=boxes, batch_size=2)
+    assert seen == [torch.bfloat16] * 2
+    fp32_resample = tpred.preprocess_frames_device
+    monkeypatch.setattr(tpred, "preprocess_frames_device",
+                        lambda *args, **kw: fp32_resample(*args, **{**kw, "out_dtype": torch.float32}))
+    ref = pred.predict_frames(frames, bboxes=boxes, batch_size=2)
+    hook.remove()
+    assert seen[2:] == [torch.float32] * 2
+    for o, r in zip(out, ref):
+        assert set(o) == set(r)
+        for key in r:
+            np.testing.assert_array_equal(o[key], r[key], err_msg=key)
+
+
 @pytest.mark.parametrize("num_workers", (0, 2))
 def test_predict_images_matches_jax(predictors, num_workers):
     """Host cv2 resize on worker threads, fixed-shape padded batches; a float
@@ -488,6 +517,8 @@ def test_resample_kernel_stress_cases(cuda, layout):
         for mode in MODES:
             scalars = frame_scalars(torch.from_numpy(sizes), torch.from_numpy(packed), 256, mode)[0].to(cuda)
             ref = resample_normalize_reference(x, scalars, 256)
+            # a collection inside the measured call would free earlier tests' cycles of card tensors
+            gc.collect()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             # bytes asked of the caching allocator (its blocks may be larger)

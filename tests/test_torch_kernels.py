@@ -174,6 +174,44 @@ def test_normalize_plain_matches_pallas_interpret(mode):
     np.testing.assert_allclose(out.numpy(), ref, atol=1e-5)
 
 
+def test_normalize_plain_bf16_equals_fp32_cast():
+    """The plain bf16 output is the plain fp32 output rounded to nearest even
+    by ``.to``, bit for bit, in every mode and through the wrapper."""
+    imgs = torch.from_numpy(np.random.default_rng(19).integers(0, 256, (2, 9, 13, 3), dtype=np.uint8))
+    for mode in MODES:
+        out = normalize_images_reference(imgs, mode, torch.bfloat16)
+        assert out.dtype == torch.bfloat16 and out.shape == imgs.shape
+        assert torch.equal(out, normalize_images_reference(imgs, mode).to(torch.bfloat16))
+        assert torch.equal(normalize_images(imgs, mode, out_dtype=torch.bfloat16), out)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_normalize_plain_bf16_matches_pallas_interpret(mode):
+    """Within one bf16 ulp of the Pallas kernel's fp32 output cast to bf16:
+    the two fp32 values may part by an fp32 ulp (1e-5 above), which can move
+    a value across a bf16 rounding boundary."""
+    import jax.numpy as jnp
+
+    from dad3dheads_tpu.ops.preprocess_pallas import normalize_images_pallas
+
+    imgs = np.random.default_rng(20).integers(0, 256, size=(2, 32, 128, 3), dtype=np.uint8)
+    ref = np.asarray(normalize_images_pallas(jnp.asarray(imgs), mode, interpret=True).astype(jnp.bfloat16))
+    ref = torch.from_numpy(ref.astype(np.float32))
+    out = normalize_images(torch.from_numpy(imgs), mode, out_dtype=torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    ulp = torch.from_numpy(np.spacing(np.abs(ref.numpy()).astype(np.float32)) * 2.0**16)  # fp32 -> bf16 spacing
+    assert torch.all((out.float() - ref).abs() <= ulp)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float16, torch.float64, torch.uint8])
+def test_normalize_refuses_other_out_dtypes(out_dtype):
+    imgs = torch.zeros((1, 4, 4, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="out_dtype"):
+        normalize_images(imgs, out_dtype=out_dtype)
+    with pytest.raises(ValueError, match="out_dtype"):
+        normalize_images_reference(imgs, out_dtype=out_dtype)
+
+
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     dirs, template = _flame_flat()
     betas = torch.from_numpy(np.random.default_rng(14).normal(size=(3, 400)).astype(np.float32))
@@ -232,19 +270,31 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 256, 256, 3), (3, 250, 131, 3)])
+@pytest.mark.parametrize("shape", [(256, 256, 256, 3), (3, 250, 131, 3), (1, 37, 41, 3), (4, 250, 130, 3)])
 def test_normalize_kernel_matches_plain(cuda, shape):
-    """The kernel rounds the multiply and the add separately, as the plain
-    version does: tolerance 1e-6."""
+    """Bit for bit (torch.equal) against the plain version in every mode, fp32
+    and bf16, and the bf16 output equal to the fp32 output cast: the kernel
+    rounds the multiply and the add separately and the bf16 store to nearest
+    even. Ragged tails (n % 16 = 14 and 7 for the middle shapes) and batch
+    slices 10 (W = 131) and 12 (W = 130) bytes past 16-byte alignment, which
+    take the scalar kernel."""
     x = torch.randint(0, 256, shape, generator=torch.Generator().manual_seed(0), dtype=torch.uint8).to(cuda)
-    before = normalize_images.launches
+    before, before_bf16 = normalize_images.launches, normalize_images.bf16_launches
     for mode in MODES:
-        out = normalize_images(x, mode)
-        assert out.dtype == torch.float32 and out.shape == x.shape
-        assert (out - normalize_images_reference(x, mode)).abs().max().item() <= 1e-6
-    assert normalize_images.launches == before + len(MODES)
-    unaligned = x[1:]  # a batch slice: not 16-byte aligned for odd sizes
-    assert (normalize_images(unaligned) - normalize_images_reference(unaligned)).abs().max().item() <= 1e-6
+        out32 = normalize_images(x, mode)
+        out16 = normalize_images(x, mode, out_dtype=torch.bfloat16)
+        assert out32.dtype == torch.float32 and out16.dtype == torch.bfloat16
+        assert out32.shape == x.shape and out16.shape == x.shape
+        assert torch.equal(out32, normalize_images_reference(x, mode))
+        assert torch.equal(out16, normalize_images_reference(x, mode, torch.bfloat16))
+        assert torch.equal(out16, out32.to(torch.bfloat16))
+    assert normalize_images.launches == before + 2 * len(MODES)
+    assert normalize_images.bf16_launches == before_bf16 + len(MODES)
+    if shape[0] > 1:
+        sliced = x[1:]  # a batch slice
+        for dtype in (torch.float32, torch.bfloat16):
+            assert torch.equal(normalize_images(sliced, out_dtype=dtype), normalize_images_reference(sliced, "imagenet",
+                                                                                                      dtype))
 
 
 @pytest.mark.cuda

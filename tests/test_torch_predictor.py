@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from dad3dheads_tpu.api import predictor as jpred
 from dad3dheads_tpu.models import create_model as jax_create_model
 from dad3dheads_tpu_torch.api import predictor as tpred
+from dad3dheads_tpu_torch.ops.preprocess import normalize_images_reference
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -81,6 +82,41 @@ def test_predict_batch_matches_jax(predictors):
         assert out[key].shape == ref[key].shape and out[key].dtype == ref[key].dtype, key
     for key, atol in (("3dmm_params", 1e-4), ("3d_vertices", 1e-4), ("points", 1e-2), ("projected_vertices", 1e-2)):
         np.testing.assert_allclose(out[key], ref[key], atol=atol, err_msg=key)
+
+
+@pytest.fixture(scope="module")
+def bf16_predictor():
+    config = {"img_size": IMG, "model": {"backbone": "resnet50", "dtype": "bfloat16"}}
+    return tpred.FaceMeshPredictor(config, device="cpu", seed=3)
+
+
+def trunk_input_dtypes(model):
+    """The dtypes of the inputs the model is called with, as a list that
+    fills while the returned hook is registered."""
+    seen = []
+    return seen, model.register_forward_pre_hook(lambda module, args: seen.append(args[0].dtype))
+
+
+def test_predict_batch_feeds_the_trunk_its_dtype(predictors, bf16_predictor):
+    """A uint8 batch is normalized straight into the trunk's dtype: the bf16
+    trunk reads bf16, which autocast passes on uncast, and predict_batch is
+    bit-identical to the route through the fp32 normalize and autocast's
+    cast, model(normalize_images_reference(x).float()). The fp32 trunk reads
+    fp32."""
+    images = np.random.default_rng(6).integers(0, 256, size=(2, IMG, IMG, 3), dtype=np.uint8)
+    for pred, dtype in ((predictors[1], torch.float32), (bf16_predictor, torch.bfloat16)):
+        seen, hook = trunk_input_dtypes(pred.model)
+        out = pred.predict_batch(images)
+        hook.remove()
+        assert seen == [dtype]
+    with torch.inference_mode():
+        x = normalize_images_reference(torch.from_numpy(images)).float()
+        dev = tpred.decode_pipeline_outputs(bf16_predictor.model(x), 4, IMG)
+        vertices, projected = bf16_predictor._decode_3dmm(dev["3dmm"])
+    ref = {"points": dev["landmarks"], "3dmm_params": dev["3dmm"], "3d_vertices": vertices,
+           "projected_vertices": projected}
+    for key, value in ref.items():
+        np.testing.assert_array_equal(out[key], value.numpy(), err_msg=key)
 
 
 def test_call_matches_jax(predictors):

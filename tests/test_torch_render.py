@@ -225,6 +225,62 @@ def test_rasterize_plain_matches_xla_adversarial(case):
     assert_flips_are_ties(verts, faces, out, ref)
 
 
+def non_finite_mesh(case, size):
+    """1,100 triangles over a size x size image, two of XLA's chunks of 1,024:
+    chunk 0 in front (z in [5, 10)) all over the image, chunk 1 behind (z in
+    [0, 5)) over its left half, and triangle 3 (chunk 0) over most of the
+    image with a corner made non-finite: z = NaN ("nan_z") or x = inf
+    ("inf_x"). Returns (verts, faces, h, w, 3)."""
+    verts, faces = soup(40, 1100, -size // 8, size + size // 8)
+    rng = np.random.default_rng(41)
+    n0, n1 = 3 * 1024, verts.shape[0] - 3 * 1024
+    verts[:n0, 2] = rng.uniform(5, 10, n0)
+    verts[n0:, 0] = rng.uniform(-size // 8, size // 2, n1)
+    verts[n0:, 2] = rng.uniform(0, 5, n1)
+    verts[9:12] = np.asarray([[0.05, 0.05, 7.0], [0.95, 0.1, 7.0], [0.45, 0.95, 7.0]], np.float32) * [size, size, 1]
+    if case == "nan_z":
+        verts[10, 2] = np.nan
+    elif case == "inf_x":
+        verts[10, 0] = np.inf
+    else:
+        raise KeyError(case)
+    return verts, faces, size, size, 3
+
+
+def without_triangle(raster, verts, faces, h, w, k):
+    """``raster`` on the mesh with triangle k removed, its ids mapped back to
+    the whole mesh's."""
+    depth, tri_id, bary = raster(verts, np.delete(faces, k, 0), h, w)
+    return depth, np.where(tri_id >= k, tri_id + 1, tri_id), bary
+
+
+@pytest.mark.parametrize("case", ["nan_z", "inf_x"])
+def test_rasterize_plain_matches_xla_on_non_finite_vertices(case):
+    """The plain version keeps XLA's rule on a non-finite vertex, with the
+    tie allowance of the other meshes. A NaN z voids the winner of the NaN
+    triangle's chunk of 1,024 wherever that triangle covers a pixel (there
+    chunk 1's triangles behind it, or nothing, show), so the result parts
+    from the mesh without that triangle; an infinite x corner passes the
+    inside test nowhere, so it leaves the result as that triangle's removal
+    does. (The kernel skips the NaN triangle alone:
+    test_rasterize_kernel_on_non_finite_vertices.)"""
+    verts, faces, h, w, k = non_finite_mesh(case, 64)
+    out, ref = port_raster(verts, faces, h, w), xla_raster(verts, faces, h, w)
+    assert_buffers_equal(out, ref, near_ties=1e-3)
+    assert_flips_are_ties(verts, faces, out, ref)
+    removed = without_triangle(port_raster, verts, faces, h, w, k)
+    voided = out[1] != removed[1]
+    if case == "nan_z":
+        # every voided pixel shows chunk 1's winner or nothing, in both versions
+        assert voided.sum() > 0.1 * h * w
+        assert np.all((out[1][voided] >= 1024) | (out[1][voided] == -1))
+        assert np.any(out[1][voided] == -1) and np.any(out[1][voided] >= 1024)
+    else:
+        assert not voided.any()
+        for a, b in zip(out, removed):
+            np.testing.assert_array_equal(a, b)
+
+
 def unculled_raster(verts, faces, h, w):
     """The plain version's arithmetic on every (pixel, triangle) pair, in the
     caller's order, strict z > best: no box, no strips."""
@@ -642,6 +698,31 @@ def test_rasterize_kernel_matches_plain(cuda, case):
     for a, b, r in zip(out, again, ref):
         assert a.shape == r.shape and (a.double() - r.double()).abs().max().item() <= 1e-4
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nan_z", "inf_x"])
+@pytest.mark.parametrize("size", [64, 256])
+def test_rasterize_kernel_on_non_finite_vertices(cuda, case, size):
+    """The kernel's rule, its one departure from the plain version: a
+    triangle with a NaN z is skipped alone, so the kernel equals the plain
+    version on the mesh without that triangle, bit for bit (where the plain
+    version voids the NaN triangle's chunk instead); on an infinite x corner
+    it equals the plain version on the mesh itself, bit for bit."""
+    verts, faces, h, w, k = non_finite_mesh(case, size)
+    v, f = torch.from_numpy(verts).to(cuda), torch.from_numpy(faces).to(cuda)
+    out = [t.cpu().numpy() for t in rasterize_buffers(v, f, h, w)]
+
+    def plain(vs, fs, hh, ww):
+        return [t.cpu().numpy() for t in rasterize_buffers_reference(torch.from_numpy(vs).to(cuda),
+                                                                     torch.from_numpy(fs).to(cuda), hh, ww)]
+
+    ref = without_triangle(plain, verts, faces, h, w, k) if case == "nan_z" else plain(verts, faces, h, w)
+    assert (ref[1] >= 0).any()
+    for a, b in zip(out, ref):
+        np.testing.assert_array_equal(a, b)
+    if case == "nan_z":
+        assert (plain(verts, faces, h, w)[1] != out[1]).any()
 
 
 @pytest.mark.cuda
