@@ -73,10 +73,22 @@ use. Phases, each of which asserts (any failure exits non-zero):
      ``configs/train.yaml``) to an export that the port's predictor loads;
      then train-step img/s at B = 64 and 128, fp32 and bf16 trunk, the step
      without its metric panel (median and range of 5 windows of 3 steps
-     after 5 warm-ups), and the kernels' launches per train step.
+     after 5 warm-ups), and the kernels' launches per train step;
+  7. the dataset path: ``cli/make_dataset.py`` renders 64 train and 16 val
+     images at 128x128 on the card (the rasterizer kernel); ``cli.train``
+     trains on them from disk at full width (batch 32, one epoch, uint8
+     batches normalized by the kernel, heatmaps encoded in the step); the
+     val set is predicted through host crops and through ``predict_frames``
+     (the resample kernel) and scored against ``generate_gt``'s ground truth;
+     the evaluator on the card and on the CPU on one submission (pose and
+     NME equal, Chamfer within 1e-6 relative, Z_5 within 1e-3) and timed on
+     a 32-item submission; this path's launches of all five kernels; the
+     loader's ms per item and the loader-fed train img/s at B = 64, 256x256,
+     thread workers and spawned process workers (the same batches), beside
+     phase 6's rate.
 
 Every launch counter is set to 0 just before the path that owns it is driven
-(4, 4b, 4c, 6) and read just after. The line before the last is a JSON object
+(4, 4b, 4c, 6, 7) and read just after. The line before the last is a JSON object
 with one entry per kernel: its launches on that path, its largest gap to the
 plain version, its time on the card and with the host's dispatch
 (``ms_host``), the plain version's, a library call's where one computes the
@@ -905,18 +917,20 @@ def _train_cli() -> dict:
     return launches
 
 
-def _train_throughput() -> None:
+def _train_throughput() -> dict:
     """Train-step img/s at B = 64 and 128, fp32 and bf16 trunk, the step
     alone as bench.py's ``train_step_ips`` times it (no metric panel): after
     5 warm-up steps, CUDA events around 5 windows of 3 back-to-back steps
     on a fixed batch; the median window's rate and the slowest and fastest
-    windows'. Then the kernels' launches in one step."""
+    windows'. Then the kernels' launches in one step. Returns the median
+    rates by (B, dtype)."""
     from dad3dheads_tpu_torch.core import LandmarkEmbedding
     from dad3dheads_tpu_torch.data.synthetic import synthetic_batch
     from dad3dheads_tpu_torch.train import build_train_step, init_train_state
 
     flame, emb = FlameModel.load(device="cuda"), LandmarkEmbedding.load(device="cuda")
     step = build_train_step(img_size=IMG, warmup_steps=400, with_metrics=False)
+    rates = {}
     for B in (TRAIN_B, 2 * TRAIN_B):
         batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(SEED + 63), flame, emb, B, IMG)
         for dtype in ("float32", "bfloat16"):
@@ -939,15 +953,169 @@ def _train_throughput() -> None:
                   f"{launches['blend_shapes_fused_backward']} blendshape backward launches; "
                   f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
             assert launches["blend_shapes_fused"] == 1 and launches["blend_shapes_fused_backward"] == 1, launches
+            rates[B, dtype] = ips[2]
             del state
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+    return rates
 
 
-def phase6_train() -> dict:
+def phase6_train() -> tuple[dict, dict]:
     _train_parity()
     launches = _train_cli()
-    _train_throughput()
+    return launches, _train_throughput()
+
+
+# --------------------------------------------------------------------------
+# 7: the dataset path
+# --------------------------------------------------------------------------
+
+DATA_IMG = 128  # the acceptance run's image size
+DATA_TRAIN, DATA_VAL, DATA_B = 64, 16, 32
+
+
+def _dataset_overrides(root: str, img: int) -> list:
+    base = os.path.join(root, "DAD-3DHeadsDataset")
+    return [f"img_size={img}", f"train.ann_path={base}/train/train.json", f"train.dataset_root={base}/train",
+            f"train.img_size={img}", f"val.ann_path={base}/val/val.json", f"val.dataset_root={base}/val",
+            f"val.img_size={img}", "val.output_uint8=true", "val.device_heatmap=true"]
+
+
+def _scorer_card_vs_cpu(gt_path: str, sub_path: str, tmp: str) -> dict:
+    """The evaluator on the card and on the CPU on one submission: pose and
+    NME equal, Chamfer within 1e-6 relative, Z_5 within 1e-3 per sample;
+    then the time of one whole scoring (json to metrics) of a 32-item
+    submission (the 16 items twice, under new ids) on each, median of 3."""
+    from dad3dheads_tpu_torch.benchmark_harness import DADEvaluator
+
+    per = {}
+    for dev in ("cuda", "cpu"):
+        ev = DADEvaluator(gt_path, sub_path, device=dev)
+        per[dev] = ev.score_batched(*ev.load())
+    for key in ("pose_error", "nme", "chamfer", "z5"):
+        gap = np.abs(per["cuda"][key] - per["cpu"][key])
+        rel = float((gap / np.abs(per["cpu"][key])).max())
+        print(f"[dataset] scorer card vs cpu {key}: max abs gap {gap.max():.3g} (rel {rel:.3g})")
+        limit = {"pose_error": 0.0, "nme": 0.0, "chamfer": 1e-6 * np.abs(per["cpu"][key]), "z5": 1e-3}[key]
+        assert np.all(gap <= limit), (key, gap)
+    gt, sub = json.load(open(gt_path)), json.load(open(sub_path))
+    gt32 = gt + [dict(g, id=g["id"] + "_b") for g in gt]
+    sub32 = {**sub, **{k + "_b": v for k, v in sub.items()}}
+    gt32_path, sub32_path = os.path.join(tmp, "gt32.json"), os.path.join(tmp, "sub32.json")
+    json.dump(gt32, open(gt32_path, "w"))
+    json.dump(sub32, open(sub32_path, "w"))
+    ms = {}
+    for dev in ("cuda", "cpu"):
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            overall, _ = DADEvaluator(gt32_path, sub32_path, device=dev)()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[dev] = float(np.median(times[1:]))
+        print(f"[dataset] scorer, {len(gt32)}-item submission on {dev}: {ms[dev]:.1f} ms (median of 3 after one), "
+              f"{overall}")
+    return ms
+
+
+def _loader_fed_rate(root: str, flame: FlameModel, synthetic: dict) -> dict:
+    """Train steps at B = 64, 256x256, fed by the port's DataLoader (uint8
+    batches, device heatmaps) from the rendered 128x128 train set, its index
+    repeated 5 times: steps 2-5 of the epoch, timed on the host's clock
+    around the loader and the step; beside phase 6's rate on a batch already
+    on the card. Thread workers (the config's 16, clamped to the cores), then
+    spawned process workers (one per core) beside this CUDA parent, which
+    must give the same batches. Also each loader alone: ms per item over its
+    second epoch."""
+    from dad3dheads_tpu_torch.data.dataset import DataLoader, FlameDataset
+    from dad3dheads_tpu_torch.train import build_train_step, init_train_state
+    from dad3dheads_tpu_torch.train.loop import _to_device
+
+    base = os.path.join(root, "DAD-3DHeadsDataset", "train")
+    ds = FlameDataset.from_config({"ann_path": os.path.join(base, "train.json"), "dataset_root": base,
+                                   "img_size": IMG, "output_uint8": True, "device_heatmap": True})
+    ds.data = ds.data * 5
+    step = build_train_step(img_size=IMG, warmup_steps=400, with_metrics=False)
+    rates, orders = {}, {}
+    for mode, workers in (("thread", 16), ("process", os.cpu_count() or 8)):
+        loader = DataLoader(ds, TRAIN_B, shuffle=True, num_workers=workers, seed=SEED, worker_mode=mode)
+        orders[mode] = [[int(i) for i in b["SAMPLE_INDEX_KEY"]] for b in loader]  # the workers start
+        t0 = time.perf_counter()
+        n = sum(len(b["SAMPLE_INDEX_KEY"]) for b in loader)
+        item_ms = (time.perf_counter() - t0) * 1e3 / n
+        print(f"[dataset] loader alone, {loader.num_workers} {mode} workers, {IMG}x{IMG} from {DATA_IMG}x{DATA_IMG} "
+              f"PNGs: {item_ms:.3f} ms per item (the second epoch, {n} items)")
+        rates[mode] = {"loader_ms_per_item": item_ms}
+        for dtype in ("float32", "bfloat16"):
+            state = init_train_state({"dtype": dtype}, {"name": "adam", "lr": 1e-4},
+                                     torch.Generator().manual_seed(SEED), "cuda", 5.0)
+            t0, steps = None, 0
+            for batch in loader:
+                logs = step(state, flame, _to_device(batch, torch.device("cuda")))
+                if t0 is None:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                else:
+                    steps += 1
+            torch.cuda.synchronize()
+            ips = steps * TRAIN_B / (time.perf_counter() - t0)
+            assert np.isfinite(float(logs["loss"])), (mode, dtype)
+            print(f"[dataset] loader-fed train B={TRAIN_B} {IMG}x{IMG}, {mode} workers, {dtype}: {ips:.1f} img/s over "
+                  f"{steps} steps; phase 6 on a batch already on the card: {synthetic[TRAIN_B, dtype]:.1f} img/s")
+            rates[mode][dtype] = ips
+            del state
+            torch.cuda.empty_cache()
+        loader.close()
+    print(f"[dataset] process workers give the thread workers' batches: {orders['process'] == orders['thread']}")
+    assert orders["process"] == orders["thread"]
+    return rates
+
+
+def phase7_dataset(synthetic: dict) -> dict:
+    """Render a dataset on the card, train on it through cli.train, predict
+    its val set through host crops and predict_frames, generate the GT and
+    score on the card and the CPU; the kernels' launches on that path. Then
+    the loader-fed train rate."""
+    from dad3dheads_tpu_torch.cli.acceptance import evaluate_checkpoint
+    from dad3dheads_tpu_torch.benchmark_harness import generate_gt
+    from dad3dheads_tpu_torch.cli.make_dataset import make_dataset
+    from dad3dheads_tpu_torch.cli.train import main as train_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        make_dataset(tmp, "train", DATA_TRAIN, DATA_IMG, seed=SEED, device="cuda")
+        make_dataset(tmp, "val", DATA_VAL, DATA_IMG, seed=SEED + 1, device="cuda")
+        t_render = time.perf_counter()
+        exp = os.path.join(tmp, "exp")
+        train_main(["--config", "configs/train.yaml", "--device", "cuda", "max_epochs=1", f"batch_size={DATA_B}",
+                    f"experiment_dir={exp}", *_dataset_overrides(tmp, DATA_IMG)])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter()
+        ckpt = os.path.join(exp, "checkpoints", "dad_3dnet.msgpack")
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            epoch = [json.loads(line) for line in f if "train/loss" in line][-1]
+        assert epoch["step"] == DATA_TRAIN // DATA_B and all(np.isfinite(v) for v in epoch.values()), epoch
+        gt_path = generate_gt(tmp, "val", output_dir=os.path.join(tmp, "gt"))
+        host = evaluate_checkpoint(tmp, DATA_IMG, ckpt, gt_path, "host", "cuda")
+        frames = evaluate_checkpoint(tmp, DATA_IMG, ckpt, gt_path, "frames", "cuda", device_preprocess=True)
+        torch.cuda.synchronize()
+        t_score = time.perf_counter()
+        launches = read_launches()
+        print(f"[dataset] rendered {DATA_TRAIN} + {DATA_VAL} images at {DATA_IMG}x{DATA_IMG} in "
+              f"{t_render - t0:.1f} s; cli.train on disk, batch {DATA_B}, 1 epoch: {t_train - t_render:.1f} s "
+              f"(train/loss {epoch['train/loss']:.4f}); predict + score both legs {t_score - t_train:.1f} s")
+        for name, leg in (("host crops", host), ("predict_frames", frames)):
+            metrics = {k: v for k, v in leg.items() if not k.startswith("_")}
+            print(f"[dataset] {name}: {metrics}")
+            assert all(np.isfinite(v) for v in metrics.values()), (name, metrics)
+        print(f"[dataset] this path's launches: {launches}")
+        assert all(n >= 1 for n in launches.values()), launches
+        scorer_ms = _scorer_card_vs_cpu(gt_path, os.path.join(tmp, "submission_host.json"), tmp)
+        rates = _loader_fed_rate(tmp, FlameModel.load(device="cuda"), synthetic)
+    print(json.dumps({"dataset_path": {"launches": launches, "render_s": t_render - t0, "train_s": t_train - t_render,
+                                       "score_s": t_score - t_train, "scorer_ms_32": scorer_ms, "loader": rates}}))
     return launches
 
 
@@ -973,15 +1141,17 @@ def main() -> int:
     phase5b_frames_throughput(pred, bf16)
     del pred, bf16
     torch.cuda.empty_cache()
-    train_launches = phase6_train()
-    # each kernel's launches on the path that serves it
+    train_launches, synthetic_rates = phase6_train()
+    dataset_launches = phase7_dataset(synthetic_rates)
+    # each kernel's launches on the path that serves it, and on the dataset path
     path_of = {"blend_shapes_fused": slice_launches, "normalize_images": slice_launches,
                "resample_normalize": frame_launches, "rasterize_buffers": render_launches,
                "blend_shapes_fused_backward": train_launches}
     summary = []
     for name in KERNELS:
-        entry = {"name": name, **kernels[name], "launches": path_of[name][name]}
-        assert entry["launches"] >= 1, entry
+        entry = {"name": name, **kernels[name], "launches": path_of[name][name],
+                 "launches_dataset_path": dataset_launches[name]}
+        assert entry["launches"] >= 1 and entry["launches_dataset_path"] >= 1, entry
         summary.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))

@@ -13,14 +13,16 @@ Layers (bottom-up):
               normalize, frame crop/resize/normalize; the heatmap encoder
   models      DAD-3DNet (ResNet-50 + BiFPN + heads) as ``nn.Module``s
   weights     flax variables / msgpack checkpoints <-> torch state dict
-  render      rasterizer kernel, PNCC, UV texture
+  render      rasterizer kernel, lighting, PNCC, UV texture
   api         FaceMeshPredictor (predict_batch, predict_frames,
               predict_images), demo processors
-  data        synthetic training batches
+  data        synthetic training batches, bbox helpers, FlameDataset and
+              DataLoader (the DAD-3DHeads on-disk format)
   losses      the four training losses over one shared FLAME decode
   metrics     NME, failure rates, soft IoU
   train       config, optimizers, schedulers, state, step, checkpoints, Trainer
-  cli         predict, demo, train
+  benchmark_harness  the DAD-3DHeads evaluator, ground truth, submissions
+  cli         predict, demo, train, make_dataset, benchmark, acceptance
 """
 
 __version__ = "0.1.0"

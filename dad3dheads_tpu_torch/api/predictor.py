@@ -143,10 +143,10 @@ class FaceMeshPredictor:
         self.config = {**DEFAULT_CONFIG, **(config or {})}
         if mesh is not None:
             raise NotImplementedError(
-                "mesh= (serving sharded over several devices) is not ported yet: ROADMAP queue 1, item 13"
+                "mesh= (serving sharded over several devices) is not ported yet: ROADMAP queue 1, 'Parallel'"
             )
         if self.config.get("quant_amax") is not None:
-            raise NotImplementedError("int8 inference (quant_amax) is not ported yet: ROADMAP queue 1, item 7")
+            raise NotImplementedError("int8 inference (quant_amax) is not ported yet: ROADMAP queue 1, 'int8 PTQ'")
         self.device = torch.device(device)
         self._img_size = int(self.config["img_size"])
         self._stride = int(self.config.get("stride", 4))
@@ -181,7 +181,7 @@ class FaceMeshPredictor:
         if self.config.get("model_url"):
             raise NotImplementedError(
                 f"no checkpoint at {path}, and downloading model_url is not ported "
-                "yet (ROADMAP queue 1, item 4): fetch the file and pass it as the checkpoint"
+                "yet (ROADMAP queue 1, 'Small surface left'): fetch the file and pass it as the checkpoint"
             )
         if require_weights:
             raise FileNotFoundError(

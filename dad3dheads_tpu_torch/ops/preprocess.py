@@ -1,5 +1,5 @@
 """Image preprocessing: the uint8 -> normalized fp32 or bf16 kernel and the
-host (numpy + cv2) resize/pad and readjustment helpers.
+host (numpy + cv2) resize/pad, keypoint and readjustment helpers.
 
 Port of ``dad3dheads_tpu/ops/preprocess.py`` and of the normalize kernel of
 ``dad3dheads_tpu/ops/preprocess_pallas.py``. On CUDA tensors
@@ -170,6 +170,11 @@ def preprocess_image_np(
     elif normalize == "mean":
         x = (x - 0.5) / 0.5
     return x, scale, [pt, pb, pl, pr]
+
+
+def transform_keypoints_np(keypoints: np.ndarray, scale, paddings: List[int]) -> np.ndarray:
+    """Map crop-space keypoints through the resize and pad: k*scale + (pl, pt)."""
+    return keypoints * scale + np.asarray([paddings[2], paddings[0]], np.float32)
 
 
 def readjust_landmarks_np(landmarks: np.ndarray, paddings: List[int], scale) -> np.ndarray:

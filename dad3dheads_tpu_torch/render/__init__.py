@@ -1,3 +1,4 @@
+from .lighting import RenderPipeline, norm_vertices
 from .pncc import PNCCEstimator, compute_ncc_color_codes, pncc
 from .rasterizer import get_normal, rasterize, rasterize_buffers, rasterize_buffers_reference, shade
 from .uv_texture import UVTextureCreator
@@ -12,4 +13,6 @@ __all__ = [
     "pncc",
     "compute_ncc_color_codes",
     "UVTextureCreator",
+    "RenderPipeline",
+    "norm_vertices",
 ]

@@ -6,7 +6,7 @@ the monitored metric, plateau LR, early stopping, a SIGTERM/SIGINT save of
 
 The loop is host orchestration; every number is computed on the device by
 the two steps, and metrics are summed there: one host read per epoch. Not
-ported yet (ROADMAP queue 1, item 8): ``auto_lr`` and ``auto_bs`` (refused)
+ported yet (ROADMAP queue 1, "The rest of training"): ``auto_lr`` and ``auto_bs`` (refused)
 and TensorBoard, scalars and image panels (``images_log_freq`` logs a
 warning); the scalars go to ``metrics.jsonl``.
 """
@@ -22,6 +22,7 @@ import signal
 import time
 from typing import Any, Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 from ..core.flame import FlameModel
@@ -57,8 +58,13 @@ class MetricAccumulator:
         return {k: v / self._n for k, v in zip(self._keys, self._sums.cpu().tolist())}
 
 
-def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
+    """Arrays and tensors to the device; other values (a loader batch's
+    lists of sample indices and file names) stay on the host as they are."""
+    return {
+        k: torch.as_tensor(v).to(device, non_blocking=True) if isinstance(v, (np.ndarray, torch.Tensor)) else v
+        for k, v in batch.items()
+    }
 
 
 class Trainer:
@@ -81,13 +87,13 @@ class Trainer:
 
         for key in ("auto_lr", "auto_bs"):
             if config.get(key):
-                raise NotImplementedError(f"{key} is not ported yet (ROADMAP queue 1, item 8)")
+                raise NotImplementedError(f"{key} is not ported yet (ROADMAP queue 1, 'The rest of training')")
         if config.get("export_aot"):
-            raise NotImplementedError("export_aot (the AOT artifact) is not ported yet (ROADMAP queue 1, item 12)")
+            raise NotImplementedError("export_aot (the AOT artifact) is not ported yet (ROADMAP queue 1, 'Export')")
         if config.get("images_log_freq"):
             logger.warning(
                 "images_log_freq=%s: TensorBoard and its image panels are not ported yet (ROADMAP queue "
-                "1, item 8); the scalars go to metrics.jsonl", config["images_log_freq"],
+                "1, 'The rest of training'); the scalars go to metrics.jsonl", config["images_log_freq"],
             )
         if config.get("debug_nans"):
             torch.autograd.set_detect_anomaly(True, check_nan=True)

@@ -99,7 +99,8 @@ def get_optimizer(
         opt = torch.optim.RAdam(params, lr=lr, betas=betas, eps=eps)
     elif name == "lamb":
         raise NotImplementedError(
-            "lamb has no torch.optim counterpart and is not ported yet (ROADMAP queue 1, item 8)"
+            "lamb has no torch.optim counterpart and is not ported yet (ROADMAP queue 1, 'The rest of "
+            "training')"
         )
     else:
         raise KeyError(f"Unsupported optimizer {name!r}")

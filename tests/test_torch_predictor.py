@@ -147,9 +147,11 @@ def test_decode_heatmap_branch_matches_jax():
 
 def test_port_runs_without_jax():
     """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's batch,
-    frames and render paths run on the CPU, its training modules import, and
-    neither the JAX package nor jax, flax or optax is ever imported (the
-    training CLI runs so in tests/test_torch_train_cli.py)."""
+    frames and render paths run on the CPU, its training, dataset and
+    benchmark modules import, and neither the JAX package nor jax, flax or
+    optax is ever imported (the training CLI runs so in
+    tests/test_torch_train_cli.py, the acceptance CLI in
+    tests/test_torch_acceptance.py)."""
     code = textwrap.dedent(
         """
         import sys
@@ -158,6 +160,11 @@ def test_port_runs_without_jax():
         from dad3dheads_tpu_torch.render import PNCCEstimator, UVTextureCreator
         import dad3dheads_tpu_torch.cli.train
         import dad3dheads_tpu_torch.train
+        import dad3dheads_tpu_torch.cli.acceptance, dad3dheads_tpu_torch.cli.benchmark
+        import dad3dheads_tpu_torch.cli.make_dataset
+        from dad3dheads_tpu_torch.benchmark_harness import DADEvaluator, generate_gt, generate_submission
+        from dad3dheads_tpu_torch.data import DataLoader, FlameDataset, HeatmapCoder
+        from dad3dheads_tpu_torch.render import RenderPipeline
         p = FaceMeshPredictor({"img_size": 64}, device="cpu", seed=1)
         out = p.predict_batch(np.zeros((2, 64, 64, 3), np.uint8))
         assert out["3d_vertices"].shape == (2, 5023, 3), out["3d_vertices"].shape

@@ -109,8 +109,12 @@ def test_cli_resumes_from_last(run, tmp_path):
 
 
 def test_cli_refuses_without_synthetic(tmp_path):
+    """Without --synthetic the CLI trains on the config's on-disk dataset
+    (tests/test_torch_train_disk.py); where there is none, it refuses,
+    naming the missing annotation file."""
     from dad3dheads_tpu_torch.cli.train import main
 
-    with pytest.raises(NotImplementedError, match="FlameDataset"):
+    missing = tmp_path / "no_dataset" / "train.json"
+    with pytest.raises(FileNotFoundError, match="no_dataset"):
         main(["--config", os.path.join(REPO, "configs/train.yaml"), "--device", "cpu",
-              f"experiment_dir={tmp_path / 'exp'}"])
+              f"experiment_dir={tmp_path / 'exp'}", f"train.ann_path={missing}"])
