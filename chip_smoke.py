@@ -85,10 +85,23 @@ use. Phases, each of which asserts (any failure exits non-zero):
      a 32-item submission; this path's launches of all five kernels; the
      loader's ms per item and the loader-fed train img/s at B = 64, 256x256,
      thread workers and spawned process workers (the same batches), beside
-     phase 6's rate.
+     phase 6's rate;
+  8. the second model family, mobilenet_w1 DAD-3DNet at its published widths
+     (256x256, BiFPN 256 filters, 68 landmarks, 413 outputs), through the
+     same entry points: ``predict_batch`` on 64 seeded uint8 images with
+     seeded random weights and randomized BN statistics, against the same
+     weights on the CPU (phase 4's tolerances); ``predict_frames`` on 8
+     4b-style frames, against the CPU on 4; two train steps on the card and
+     the CPU from one seeded state (phase 6's tolerances); ``cli.train``
+     (``model.backbone=mobilenet_w1``, ``--synthetic 4``, batch 64) to an
+     export that the mobilenet predictor loads; then phase 5's and 5b's
+     img/s and bit-for-bit bf16 routes, and train-step img/s at B = 64 and
+     128, fp32 and bf16. This path's launches of the normalize, resample,
+     blendshape and blendshape backward kernels (each at least one) go into
+     the kernels line as ``launches_mobilenet_path``.
 
 Every launch counter is set to 0 just before the path that owns it is driven
-(4, 4b, 4c, 6, 7) and read just after. The line before the last is a JSON object
+(4, 4b, 4c, 6, 7 and each entry point of 8) and read just after. The line before the last is a JSON object
 with one entry per kernel: its launches on that path, its largest gap to the
 plain version, its time on the card and with the host's dispatch
 (``ms_host``), the plain version's, a library call's where one computes the
@@ -588,7 +601,7 @@ def compare_predictions(out: list, ref: list, tag: str) -> None:
         assert gap <= atol, (tag, key, gap)
 
 
-def phase4_slice(config: dict) -> tuple[FaceMeshPredictor, dict]:
+def phase4_slice(config: dict, tag: str = "slice") -> tuple[FaceMeshPredictor, dict]:
     pred = FaceMeshPredictor(config, device="cuda", seed=SEED)
     randomize_bn_stats(pred.model, torch.Generator().manual_seed(SEED + 1))
     images = np.random.default_rng(SEED).integers(0, 256, (SLICE_B, IMG, IMG, 3), dtype=np.uint8)
@@ -598,7 +611,7 @@ def phase4_slice(config: dict) -> tuple[FaceMeshPredictor, dict]:
     out = pred.predict_batch(images)
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    print(f"[slice] predict_batch B={SLICE_B} (first call) {seconds:.3f} s, launches {launches}")
+    print(f"[{tag}] predict_batch B={SLICE_B} (first call) {seconds:.3f} s, launches {launches}")
     assert launches["blend_shapes_fused"] >= 1 and launches["normalize_images"] >= 1, launches
 
     V = pred.flame.num_vertices
@@ -614,16 +627,19 @@ def phase4_slice(config: dict) -> tuple[FaceMeshPredictor, dict]:
     tol = {"3dmm_params": 1e-3, "3d_vertices": 1e-3, "points": 0.5, "projected_vertices": 0.5}
     for key, atol in tol.items():
         gap = float(np.abs(out[key][:4] - ref[key]).max())
-        print(f"[slice] card vs cpu {key}: max abs gap {gap:.3g} (atol {atol})")
+        print(f"[{tag}] card vs cpu {key}: max abs gap {gap:.3g} (atol {atol})")
         assert gap <= atol, (key, gap)
     return pred, launches
 
 
-def phase4b_frames(pred: FaceMeshPredictor, config: dict) -> tuple[list, dict]:
+def phase4b_frames(pred: FaceMeshPredictor, config: dict, n: int = FRAMES_B, tag: str = "frames",
+                   device_images: bool = True) -> tuple[list, dict]:
+    """predict_frames on ``n`` frames of mixed sizes against the CPU on 4;
+    with ``device_images``, predict_images on a CUDA tensor too."""
     rng = np.random.default_rng(SEED + 30)
     sizes_hw = [(512, 640), (1080, 1920), (720, 1280), (480, 854), (1080, 1440), (360, 640), (600, 800),
                 (768, 1024)]
-    sizes_hw = (sizes_hw * (FRAMES_B // len(sizes_hw) + 1))[:FRAMES_B]
+    sizes_hw = (sizes_hw * (n // len(sizes_hw) + 1))[:n]
     frames = seeded_frames(rng, sizes_hw)
     boxes = face_boxes(rng, sizes_hw)
 
@@ -632,10 +648,10 @@ def phase4b_frames(pred: FaceMeshPredictor, config: dict) -> tuple[list, dict]:
     out = pred.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B)
     seconds = time.perf_counter() - t0
     launches = read_launches()
-    print(f"[frames] predict_frames {FRAMES_B} frames up to 1920x1080 (first call) {seconds:.3f} s, "
+    print(f"[{tag}] predict_frames {n} frames up to 1920x1080 (first call) {seconds:.3f} s, "
           f"launches {launches}")
     assert launches["resample_normalize"] >= 1 and launches["blend_shapes_fused"] >= 1, launches
-    assert len(out) == FRAMES_B
+    assert len(out) == n
     V = pred.flame.num_vertices
     for o in out:
         assert o["points"].shape == (68, 2) and o["3dmm_params"].shape == (1, 413)
@@ -645,7 +661,9 @@ def phase4b_frames(pred: FaceMeshPredictor, config: dict) -> tuple[list, dict]:
 
     cpu = FaceMeshPredictor(config, device="cpu", seed=SEED)
     cpu.model.load_state_dict(pred.model.state_dict())
-    compare_predictions(out[:4], cpu.predict_frames(frames[:4], bboxes=boxes[:4], batch_size=4), "frames")
+    compare_predictions(out[:4], cpu.predict_frames(frames[:4], bboxes=boxes[:4], batch_size=4), tag)
+    if not device_images:
+        return frames, launches
 
     # predict_images on a CUDA uint8 tensor: the device branch, normalize kernel
     images = torch.from_numpy(rng.integers(0, 256, (2 * FRAMES_B + 3, IMG, IMG, 3), dtype=np.uint8)).cuda()
@@ -717,7 +735,7 @@ def assert_same_outputs(new, old, tag: str) -> None:
     assert same, tag
 
 
-def phase5_throughput(pred: FaceMeshPredictor, config: dict) -> FaceMeshPredictor:
+def phase5_throughput(pred: FaceMeshPredictor, config: dict, tag: str = "throughput") -> tuple[FaceMeshPredictor, dict]:
     images = np.random.default_rng(SEED + 2).integers(0, 256, (BENCH_B, IMG, IMG, 3), dtype=np.uint8)
     bf16_config = {**config, "model": {**config["model"], "dtype": "bfloat16"}}
     bf16 = FaceMeshPredictor(bf16_config, device="cuda", seed=SEED)
@@ -726,7 +744,7 @@ def phase5_throughput(pred: FaceMeshPredictor, config: dict) -> FaceMeshPredicto
         reset_launches()
         p.predict_batch(images)
         counts = (normalize_images.launches, normalize_images.bf16_launches)
-        print(f"[throughput] predict_batch B={BENCH_B} {name}: normalize launches {counts[0]}, "
+        print(f"[{tag}] predict_batch B={BENCH_B} {name}: normalize launches {counts[0]}, "
               f"{counts[1]} of them writing bf16")
         assert counts == (1, bf16_launches), (name, counts)
     with cudnn_deterministic():
@@ -734,17 +752,18 @@ def phase5_throughput(pred: FaceMeshPredictor, config: dict) -> FaceMeshPredicto
         with cast_route():
             old = bf16.predict_batch(images[:SLICE_B])
     assert_same_outputs(new, old, f"predict_batch B={SLICE_B}, bf16 trunk")
-    outs = {}
+    outs, rates = {}, {}
     for name, p in (("fp32", pred), ("bf16", bf16)):
         ms = median_ms(lambda: outs.__setitem__(name, p.predict_batch(images)), reps=5, warmup=2)
-        print(f"[throughput] predict_batch B={BENCH_B} {name}: {ms:.2f} ms, {BENCH_B / ms * 1e3:.1f} img/s")
+        rates[name] = BENCH_B / ms * 1e3
+        print(f"[{tag}] predict_batch B={BENCH_B} {name}: {ms:.2f} ms, {BENCH_B / ms * 1e3:.1f} img/s")
         assert all(np.isfinite(v).all() for v in outs[name].values()), name
     gap = float(np.abs(outs["bf16"]["3dmm_params"] - outs["fp32"]["3dmm_params"]).max())
-    print(f"[throughput] bf16 vs fp32 3dmm_params max abs gap {gap:.3g}")
-    return bf16
+    print(f"[{tag}] bf16 vs fp32 3dmm_params max abs gap {gap:.3g}")
+    return bf16, rates
 
 
-def phase5b_frames_throughput(pred: FaceMeshPredictor, bf16: FaceMeshPredictor) -> None:
+def phase5b_frames_throughput(pred: FaceMeshPredictor, bf16: FaceMeshPredictor, tag: str = "throughput") -> dict:
     rng = np.random.default_rng(SEED + 40)
     n = 4 * FRAMES_B
     sizes_hw = [(720, 1280)] * n
@@ -755,9 +774,11 @@ def phase5b_frames_throughput(pred: FaceMeshPredictor, bf16: FaceMeshPredictor) 
         with cast_route():
             old = bf16.predict_frames(frames[:FRAMES_B], bboxes=boxes[:FRAMES_B], batch_size=FRAMES_B)
     assert_same_outputs(new, old, f"predict_frames {FRAMES_B} frames 1280x720, bf16 trunk")
+    rates = {}
     for name, p in (("fp32", pred), ("bf16", bf16)):
         ms = median_ms(lambda: p.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B), reps=5, warmup=1)
-        print(f"[throughput] predict_frames {n} frames 1280x720, batches of {FRAMES_B}, {name}: {ms:.2f} ms, "
+        rates[name] = n / ms * 1e3
+        print(f"[{tag}] predict_frames {n} frames 1280x720, batches of {FRAMES_B}, {name}: {ms:.2f} ms, "
               f"{n / ms * 1e3:.1f} img/s")
     # the host's part of each batch: pasting the frames into one buffer, in
     # the planar layout predict_frames uses and in NHWC, which the kernel
@@ -767,8 +788,9 @@ def phase5b_frames_throughput(pred: FaceMeshPredictor, bf16: FaceMeshPredictor) 
         for lo in range(0, n, FRAMES_B):
             pack_frames_host(frames[lo : lo + FRAMES_B], boxes[lo : lo + FRAMES_B], FRAMES_B, planar=planar)
         pack_ms = (time.perf_counter() - t0) / (n // FRAMES_B) * 1e3
-        print(f"[throughput] pack_frames_host ({'planar' if planar else 'nhwc'}) per batch of {FRAMES_B}: "
+        print(f"[{tag}] pack_frames_host ({'planar' if planar else 'nhwc'}) per batch of {FRAMES_B}: "
               f"{pack_ms:.2f} ms")
+    return rates
 
 
 # --------------------------------------------------------------------------
@@ -828,9 +850,9 @@ def phase3d_blend_backward(flame: FlameModel, flush: torch.Tensor) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _train_parity() -> None:
+def _train_parity(model: dict | None = None, tag: str = "train parity") -> dict:
     """Two train steps on the card and on the CPU from the same seeded
-    weights (the JAX package's initialisation, dropout 0, fp32) and one
+    weights (the JAX package's initialisation of ``model``'s network, dropout 0, fp32) and one
     synthetic batch (B = 8, 256x256), with the config's Adam, clip and
     warmup. The card runs cuDNN in full fp32 (TF32 off) and
     deterministically. Tolerances: losses 1e-3 relative; grad_norm 2e-2
@@ -839,7 +861,7 @@ def _train_parity() -> None:
     gap under 25% of their norm (the bound tests/test_torch_train_step.py
     holds the port to against JAX); the parameter checksum (their sum)
     within 5% of the update's L1; BN statistics within 1e-3 of each tensor's
-    largest value."""
+    largest value. Returns the kernels' launches in the card's two steps."""
     from dad3dheads_tpu_torch.core import LandmarkEmbedding
     from dad3dheads_tpu_torch.data.synthetic import synthetic_batch
     from dad3dheads_tpu_torch.train import build_train_step, init_train_state
@@ -853,13 +875,17 @@ def _train_parity() -> None:
     torch.backends.cudnn.deterministic = True
     try:
         for device in ("cpu", "cuda"):
-            state = init_train_state({"dropout": 0.0}, config["optimizer"], torch.Generator().manual_seed(SEED + 61),
-                                     device, float(config["gradient_clip_val"]))
+            state = init_train_state({**(model or {}), "dropout": 0.0}, config["optimizer"],
+                                     torch.Generator().manual_seed(SEED + 61), device,
+                                     float(config["gradient_clip_val"]))
             start = {k: v.detach().clone() for k, v in state.model.named_parameters()}
             step = build_train_step(img_size=IMG, warmup_steps=warmup)
             flame = FlameModel.load(device=device)
             b = {k: v.to(device) for k, v in batch.items()}
+            reset_launches()
             logs = [{k: float(v) for k, v in step(state, flame, b).items()} for _ in range(2)]
+            if device == "cuda":
+                launches = read_launches()
             delta = {k: (v.detach() - start[k]).cpu() for k, v in state.model.named_parameters()}
             checksum = sum(float(v.detach().double().sum()) for v in state.model.parameters())
             stats = {k: v.detach().cpu() for k, v in state.model.state_dict().items() if "running" in k}
@@ -871,22 +897,26 @@ def _train_parity() -> None:
         for key in ("loss", "heatmap_loss", "vertices3d_loss", "reprojection_loss", "landmarks_loss", "grad_norm"):
             rel = abs(g[key] - c[key]) / abs(c[key])
             tol = 2e-2 if key == "grad_norm" else 1e-3
-            print(f"[train parity] step {i} {key}: card {g[key]:.6f} cpu {c[key]:.6f} (rel {rel:.2e}, tol {tol})")
+            print(f"[{tag}] step {i} {key}: card {g[key]:.6f} cpu {c[key]:.6f} (rel {rel:.2e}, tol {tol})")
             assert rel <= tol, (i, key, g[key], c[key])
     gap = sum(float(((gd[k] - cd[k]) ** 2).sum()) for k in cd) ** 0.5
     norm = sum(float((cd[k] ** 2).sum()) for k in cd) ** 0.5
     stat_gap = max(float((gst[k] - cst[k]).abs().max() / (cst[k].abs().max() + 1e-12)) for k in cst)
     moved = sum(float(v.abs().sum()) for v in cd.values())
-    print(f"[train parity] parameter updates: L2 gap {gap:.3g} of norm {norm:.3g}; parameter checksum card "
+    print(f"[{tag}] parameter updates: L2 gap {gap:.3g} of norm {norm:.3g}; parameter checksum card "
           f"{gs:.6f} cpu {cs:.6f} (gap <= 5% of the update's L1 {moved:.4g}); BN statistics gap {stat_gap:.2e} "
           f"of each tensor's largest value")
     assert norm > 0 and gap <= 0.25 * norm, (gap, norm)
     assert abs(gs - cs) <= 0.05 * moved and stat_gap <= 1e-3, (gs, cs, moved, stat_gap)
+    print(f"[{tag}] the card's two steps: launches {launches}")
+    assert launches["blend_shapes_fused"] >= 2 and launches["blend_shapes_fused_backward"] >= 2, launches
+    return launches
 
 
-def _train_cli() -> dict:
-    """cli.train main at full width to an export the port's predictor loads;
-    the kernels' launches on that run."""
+def _train_cli(backbone: str = "resnet50", tag: str = "train cli") -> dict:
+    """cli.train main at full width (``model.backbone=backbone``) to an export
+    that the port's predictor of that backbone loads; the kernels' launches
+    on that run."""
     from dad3dheads_tpu_torch.cli.train import main as train_main
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -894,30 +924,32 @@ def _train_cli() -> dict:
         reset_launches()
         t0 = time.perf_counter()
         train_main(["--config", "configs/train.yaml", "--synthetic", "4", "--device", "cuda",
-                    "max_epochs=1", f"experiment_dir={exp}"])
+                    "max_epochs=1", f"model.backbone={backbone}", f"experiment_dir={exp}"])
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = read_launches()
-        print(f"[train cli] --synthetic 4, batch {TRAIN_B}, 1 epoch: {seconds:.1f} s, launches {launches}")
+        print(f"[{tag}] --synthetic 4, batch {TRAIN_B}, 1 epoch: {seconds:.1f} s, launches {launches}")
         assert launches["blend_shapes_fused"] >= 1 and launches["blend_shapes_fused_backward"] >= 1, launches
         ck = os.path.join(exp, "checkpoints")
         for name in ("last.pt", "dad_3dnet.msgpack"):
             assert os.path.isfile(os.path.join(ck, name)), name
         with open(os.path.join(exp, "metrics.jsonl")) as f:
             epoch = [json.loads(line) for line in f if "train/loss" in line][-1]
-        print(f"[train cli] epoch 0: train/loss {epoch['train/loss']:.4f}, "
+        print(f"[{tag}] epoch 0: train/loss {epoch['train/loss']:.4f}, "
               f"valid/metrics/reproject_nme_2d {epoch['valid/metrics/reproject_nme_2d']:.4f}")
         assert all(np.isfinite(v) for v in epoch.values())
-        pred = FaceMeshPredictor({"img_size": IMG}, checkpoint_path=os.path.join(ck, "dad_3dnet.msgpack"),
-                                 device="cuda", require_weights=True)
+        pred = FaceMeshPredictor({"img_size": IMG, "model": {"backbone": backbone}},
+                                 checkpoint_path=os.path.join(ck, "dad_3dnet.msgpack"), device="cuda",
+                                 require_weights=True)
+        assert pred.model.backbone == backbone
         images = np.random.default_rng(SEED + 62).integers(0, 256, (4, IMG, IMG, 3), dtype=np.uint8)
         out = pred.predict_batch(images)
         assert all(np.isfinite(v).all() for v in out.values())
-        print(f"[train cli] the port's predictor loads the export: 3dmm {out['3dmm_params'].shape}, finite")
+        print(f"[{tag}] the port's predictor loads the export: 3dmm {out['3dmm_params'].shape}, finite")
     return launches
 
 
-def _train_throughput() -> dict:
+def _train_throughput(model: dict | None = None, tag: str = "train throughput") -> dict:
     """Train-step img/s at B = 64 and 128, fp32 and bf16 trunk, the step
     alone as bench.py's ``train_step_ips`` times it (no metric panel): after
     5 warm-up steps, CUDA events around 5 windows of 3 back-to-back steps
@@ -934,7 +966,7 @@ def _train_throughput() -> dict:
     for B in (TRAIN_B, 2 * TRAIN_B):
         batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(SEED + 63), flame, emb, B, IMG)
         for dtype in ("float32", "bfloat16"):
-            state = init_train_state({"dtype": dtype}, {"name": "adam", "lr": 1e-4},
+            state = init_train_state({**(model or {}), "dtype": dtype}, {"name": "adam", "lr": 1e-4},
                                      torch.Generator().manual_seed(SEED + 64), "cuda", 5.0)
 
             def window():
@@ -948,7 +980,7 @@ def _train_throughput() -> dict:
             logs = step(state, flame, batch)
             launches = read_launches()
             assert np.isfinite(float(logs["loss"])), (B, dtype)
-            print(f"[train throughput] B={B} {dtype}: {ips[2]:.1f} img/s (windows {ips[0]:.1f} to {ips[-1]:.1f}), "
+            print(f"[{tag}] B={B} {dtype}: {ips[2]:.1f} img/s (windows {ips[0]:.1f} to {ips[-1]:.1f}), "
                   f"{B / ips[2] * 1e3:.2f} ms per step; per step: {launches['blend_shapes_fused']} blendshape, "
                   f"{launches['blend_shapes_fused_backward']} blendshape backward launches; "
                   f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
@@ -964,6 +996,42 @@ def phase6_train() -> tuple[dict, dict]:
     _train_parity()
     launches = _train_cli()
     return launches, _train_throughput()
+
+
+# --------------------------------------------------------------------------
+# 8: the second model family, mobilenet_w1
+# --------------------------------------------------------------------------
+
+
+def add_launches(*runs: dict) -> dict:
+    return {name: sum(r[name] for r in runs) for name in runs[0]}
+
+
+def phase8_mobilenet() -> dict:
+    """The mobilenet_w1 DAD-3DNet through the port's entry points, each
+    entry point's launches counted from 0 and summed into this path's. Then
+    its img/s. Returns the path's launches."""
+    model = {"backbone": "mobilenet_w1"}
+    config = {"img_size": IMG, "model": {**model, "dtype": "float32"}}
+    pred, batch_launches = phase4_slice(config, "mobilenet slice")
+    assert pred.model.backbone == "mobilenet_w1"
+    _, frame_launches = phase4b_frames(pred, config, n=8, tag="mobilenet frames", device_images=False)
+    parity_launches = _train_parity(model, "mobilenet train parity")
+    cli_launches = _train_cli("mobilenet_w1", "mobilenet train cli")
+    launches = add_launches(batch_launches, frame_launches, parity_launches, cli_launches)
+    print(f"[mobilenet] this path's launches: {launches}")
+    for name in ("normalize_images", "resample_normalize", "blend_shapes_fused", "blend_shapes_fused_backward"):
+        assert launches[name] >= 1, (name, launches)
+
+    bf16, batch_ips = phase5_throughput(pred, config, "mobilenet throughput")
+    frames_ips = phase5b_frames_throughput(pred, bf16, "mobilenet throughput")
+    del pred, bf16
+    torch.cuda.empty_cache()
+    train_ips = _train_throughput(model, "mobilenet train throughput")
+    print(json.dumps({"mobilenet_path": {
+        "launches": launches, "predict_batch_ips_B256": batch_ips, "predict_frames_ips_720p": frames_ips,
+        "train_step_ips": {f"B{b} {dtype}": ips for (b, dtype), ips in train_ips.items()}}}))
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1137,20 +1205,23 @@ def main() -> int:
     pred, slice_launches = phase4_slice(config)
     frames, frame_launches = phase4b_frames(pred, config)
     render_launches = phase4c_render(flame, frames[0])
-    bf16 = phase5_throughput(pred, config)
+    bf16, _ = phase5_throughput(pred, config)
     phase5b_frames_throughput(pred, bf16)
     del pred, bf16
     torch.cuda.empty_cache()
     train_launches, synthetic_rates = phase6_train()
     dataset_launches = phase7_dataset(synthetic_rates)
-    # each kernel's launches on the path that serves it, and on the dataset path
+    mobilenet_launches = phase8_mobilenet()
+    # each kernel's launches on the path that serves it, on the dataset path
+    # and on the mobilenet path
     path_of = {"blend_shapes_fused": slice_launches, "normalize_images": slice_launches,
                "resample_normalize": frame_launches, "rasterize_buffers": render_launches,
                "blend_shapes_fused_backward": train_launches}
     summary = []
     for name in KERNELS:
         entry = {"name": name, **kernels[name], "launches": path_of[name][name],
-                 "launches_dataset_path": dataset_launches[name]}
+                 "launches_dataset_path": dataset_launches[name],
+                 "launches_mobilenet_path": mobilenet_launches[name]}
         assert entry["launches"] >= 1 and entry["launches_dataset_path"] >= 1, entry
         summary.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")

@@ -16,7 +16,9 @@ Three bulk entries, each with the JAX predictor's keys, shapes and dtypes:
 in flight: the next batch is queued on the card before the previous one's
 results are copied back and readjusted on the host.
 
-Weights come from a JAX-package ``.msgpack`` checkpoint: the given path, else
+The model config's ``backbone`` (resnet50, the default, or mobilenet_w1)
+selects the network. Weights come from a JAX-package ``.msgpack`` checkpoint
+of that backbone (another backbone's is refused): the given path, else
 ``~/.dad3d_tpu_checkpoints/dad_3dnet.msgpack`` when it exists, else random
 weights from a seeded ``torch.Generator`` (with a warning, or an error with
 ``require_weights``). Not ported yet, and refused: the ``model_url``
@@ -172,8 +174,9 @@ class FaceMeshPredictor:
             # a requested checkpoint is never silently replaced by the cache
             raise FileNotFoundError(
                 f"checkpoint not found: {checkpoint_path}. Train one "
-                "(python -m dad3dheads_tpu.cli.train) or port the reference "
-                "weights (tools/port_torch_weights.py)."
+                "(python -m dad3dheads_tpu_torch.cli.train) or port the reference "
+                "weights (dad3dheads_tpu_torch.weights.state_dict_from_reference, "
+                "or tools/port_torch_weights.py)."
             )
         path = checkpoint_path or os.path.join(_CKPT_DIR, _CKPT_FILE)
         if os.path.isfile(path):
@@ -186,8 +189,9 @@ class FaceMeshPredictor:
         if require_weights:
             raise FileNotFoundError(
                 f"no predictor checkpoint at {path}. Train one (python -m "
-                "dad3dheads_tpu.cli.train), port the reference weights "
-                "(tools/port_torch_weights.py --torch model.trcd --out "
+                "dad3dheads_tpu_torch.cli.train), port the reference weights "
+                "(dad3dheads_tpu_torch.weights.state_dict_from_reference, or "
+                "tools/port_torch_weights.py --torch model.trcd --out "
                 "dad_3dnet.msgpack), or pass --allow-random-weights to run with "
                 "random weights."
             )

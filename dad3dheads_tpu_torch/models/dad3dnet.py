@@ -1,5 +1,5 @@
-"""DAD-3DNet: staged ResNet-50 + BiFPN + heatmap head + fusion + 3DMM heads.
-Mirrors ``dad3dheads_tpu/models/dad3dnet.py``.
+"""DAD-3DNet: staged encoder (resnet50 or mobilenet_w1) + BiFPN + heatmap
+head + fusion + 3DMM heads. Mirrors ``dad3dheads_tpu/models/dad3dnet.py``.
 
 Public layout is the reference's: NHWC images in; heatmap (B, H/4, W/4, 68),
 413-dim 3DMM and (B, 68, 2) landmarks out. Inside, the NHWC input viewed as
@@ -29,7 +29,10 @@ from ..constants import (
 )
 
 from .bifpn import BiFPN, ChannelScale
+from .mobilenet import MobileNetStages
 from .resnet import ResNet50Stages
+
+ENCODERS = {"resnet50": ResNet50Stages, "mobilenet_w1": MobileNetStages}
 
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
@@ -83,10 +86,13 @@ def cudnn_tf32_off():
 
 
 class DAD3DNet(nn.Module):
-    """The image -> (heatmap, 3DMM, landmarks) network, resnet50 backbone."""
+    """The image -> (heatmap, 3DMM, landmarks) network on the ``backbone``
+    encoder (``ENCODERS``: resnet50 or mobilenet_w1); the BiFPN, fusion and
+    heads take their widths from its channel table."""
 
     def __init__(
         self,
+        backbone: str = "resnet50",
         num_filters: int = 256,
         num_classes: int = 68,
         limit_value: float = 3.0,
@@ -98,10 +104,13 @@ class DAD3DNet(nn.Module):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
+        if backbone not in ENCODERS:
+            raise KeyError(f"unknown backbone {backbone!r}: one of {sorted(ENCODERS)}")
+        self.backbone = backbone
         self.dtype = dtype
         self.num_classes = num_classes
         self.limit_value = limit_value
-        self.encoder = ResNet50Stages()
+        self.encoder = ENCODERS[backbone]()
         ch = self.encoder.encoder_channels
         self.bifpn = BiFPN((ch["layer3"], ch["layer2"], ch["layer1"]), feature_size=num_filters)
         self.head = nn.ModuleDict({"heatmap": nn.Conv2d(num_filters, num_classes, 3, padding=1)})
@@ -154,13 +163,11 @@ def create_model(config: Optional[Dict[str, Any]] = None, generator: Optional[to
     ``generator`` (a seeded CPU generator gives the same weights on every
     device; None uses torch's default RNG)."""
     config = config or {}
-    backbone = config.get("backbone", "resnet50")
-    if backbone != "resnet50":
-        raise KeyError(f"backbone {backbone!r} is not ported yet (resnet50 only)")
     dtype = config.get("dtype", torch.float32)
     if isinstance(dtype, str):
         dtype = _DTYPES[dtype]
     model = DAD3DNet(
+        backbone=config.get("backbone", "resnet50"),
         num_filters=config.get("num_filters", 256),
         num_classes=config.get("num_classes", 68),
         limit_value=config.get("limit_value", 3.0),
@@ -176,7 +183,8 @@ def init_parameters(model: nn.Module, generator: Optional[torch.Generator] = Non
     """The JAX package's initialisation (flax's defaults), drawn from
     ``generator``: conv and dense kernels and the BiFPN depthwise scales
     lecun_normal (a normal truncated at two standard deviations, std
-    sqrt(1 / fan_in) / 0.8796), biases zero, BN identity, fusion weights one.
+    sqrt(1 / fan_in) / 0.8796; fan_in = ``weight[0].numel()``, k*k for a
+    depthwise kernel, as flax's (k, k, 1, C)), biases zero, BN identity, fusion weights one.
     The numbers differ from flax's (another generator); the distribution is
     the one the reference trains from."""
     for m in model.modules():

@@ -45,19 +45,25 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
-ENCODER_CHANNELS: Dict[str, int] = {
-    "layer0": 2048, "layer1": 1024, "layer2": 512, "layer3": 256, "layer4": 64,
+# Per-backbone channel tables, keyed like the reference's backbone.yaml
+# (layer0 = deepest), as the JAX package's ``ENCODER_CHANNELS``.
+ENCODER_CHANNELS: Dict[str, Dict[str, int]] = {
+    "resnet50": {"layer0": 2048, "layer1": 1024, "layer2": 512, "layer3": 256, "layer4": 64},
+    "mobilenet_w1": {"layer0": 1024, "layer1": 512, "layer2": 256, "layer3": 128, "layer4": 64},
 }
 RESNET50_UNITS = (3, 4, 6, 3)
 RESNET50_CHANNELS = (256, 512, 1024, 2048)
 
 
 class ConvBN(nn.Module):
-    """Bias-free conv with explicit symmetric padding k // 2, BN, optional ReLU."""
+    """Bias-free conv with explicit symmetric padding k // 2, BN, optional
+    ReLU; ``groups=in_c`` makes it depthwise."""
 
-    def __init__(self, in_c: int, out_c: int, kernel: int = 3, stride: int = 1, use_relu: bool = True):
+    def __init__(
+        self, in_c: int, out_c: int, kernel: int = 3, stride: int = 1, use_relu: bool = True, groups: int = 1
+    ):
         super().__init__()
-        self.conv = nn.Conv2d(in_c, out_c, kernel, stride=stride, padding=kernel // 2, bias=False)
+        self.conv = nn.Conv2d(in_c, out_c, kernel, stride=stride, padding=kernel // 2, groups=groups, bias=False)
         self.bn = BatchNorm2d(out_c, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.use_relu = use_relu
 
@@ -113,7 +119,7 @@ class ResNet50Stages(nn.Module):
     """The five stages exposed separately: DAD-3DNet runs stages 0-3, branches
     through BiFPN + fusion, then runs stage 4 on the fused map."""
 
-    encoder_channels = ENCODER_CHANNELS
+    encoder_channels = ENCODER_CHANNELS["resnet50"]
 
     def __init__(self):
         super().__init__()

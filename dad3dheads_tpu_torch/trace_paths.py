@@ -6,16 +6,22 @@ device time summed by kernel bucket.
 Drives ``predict_batch`` (256 uint8 images of 256x256), ``predict_frames``
 (64 frames of 1280x720 with face boxes, one batch) and one train step
 (``build_train_step`` on a synthetic batch of 64 at 256x256, Adam, clip 5)
-with the resnet50 DAD-3DNet at its published widths, random weights from a
-seeded generator, fp32 and bf16 trunk. After 3 warm-up calls, one call of
-each is traced with ``torch.profiler``. Prints, per entry point and dtype, the device
-milliseconds of each bucket and their sum, the device's busy time (the union
-of its kernel and copy intervals), the call's wall time on the host clock and
-the idle share of that wall, and the call's first device events in order
-(name and ms), which show what runs between the upload and the stem
-convolution: the normalize kernel and the type it writes, any cast, any
-layout transform of cuDNN's. With ``--trace-dir`` it also writes each chrome
-trace there.
+with each DAD-3DNet (resnet50, then mobilenet_w1) at its published widths,
+random weights from a seeded generator, fp32 and bf16 trunk. After 3 warm-up
+calls, one call of each is traced with ``torch.profiler``. Prints, per
+backbone, entry point and dtype, the device milliseconds of each bucket and
+their sum, the device's busy time (the union of its kernel and copy
+intervals), the call's wall time on the host clock and the idle share of
+that wall; the call's first device events in order (name and ms), which
+show what runs between the upload and the stem convolution: the normalize
+kernel and the type it writes, any cast, any layout transform of cuDNN's;
+the kernels that took the most device time, by name; and how many times
+each convolution operator ran (``aten::cudnn_convolution`` against
+``aten::_conv_depthwise2d``, ATen's own NCHW depthwise kernel, which a
+channels_last input reaches through layout copies); and, for mobilenet_w1,
+its 13 depthwise convolutions alone at B = 256, forward and backward, to
+name their kernels. With ``--trace-dir`` it also writes each chrome trace
+there.
 Needs a CUDA card; imports nothing of JAX.
 """
 
@@ -44,14 +50,19 @@ BUCKETS = (
     ("optimizer (Adam, clip: foreach kernels)", ("multi_tensor_apply", "foreach")),
     ("memcpy HtoD", ("memcpy htod",)),
     ("memcpy DtoH", ("memcpy dtoh",)),
-    ("conv (cuDNN/CUTLASS/GEMM, layout transposes)", ("cudnn", "xmma", "cutlass", "gemm", "conv", "sm90_",
-                                                      "nhwctonchw", "nchwtonhwc")),
-    ("batch norm", ("batch_norm", "bn_fw")),
+    ("depthwise conv (cuDNN's *_c1_k1_nhwc and xmma depthwise, ATen's conv_depthwise2d)",
+     ("_c1_k1_", "depthwise_convolution", "conv_depthwise2d")),
+    ("layout transposes, cuDNN's", ("nhwctonchw", "nchwtonhwc")),
+    ("copies and casts, ATen's (layout copies included)", ("copy_kernel",)),
+    ("batch norm (cuDNN's in fp32, ATen's in bf16)", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("conv (cuDNN/CUTLASS/GEMM, FFT)", ("cudnn", "xmma", "cutlass", "gemm", "conv", "sm90_", "wgrad", "dgrad",
+                                        "fft", "pointwise_mult_and_sum_complex")),
     ("upsample", ("upsample",)),
     ("max pool", ("max_pool",)),
 )
 OTHER = "elementwise and other"
 FIRST_EVENTS = 12  # device events listed in order from the start of each traced call
+TOP_KERNELS = 12  # kernels listed by their device time in each traced call
 
 
 def bucket_of(name: str) -> str:
@@ -63,9 +74,11 @@ def bucket_of(name: str) -> str:
 
 
 def device_events(prof) -> list:
-    """(name, start_us, end_us) of every kernel, copy and memset on the card."""
+    """(name, start_us, end_us) of every kernel, copy and memset on the card
+    (not the device-side spans of annotations such as ``Optimizer.step``,
+    which cover kernels already counted)."""
     out = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-           if e.device_type == DeviceType.CUDA]
+           if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
     if not out:
         raise RuntimeError("the profiler recorded no device activity on this machine")
     return out
@@ -92,9 +105,12 @@ def trace(fn, label: str, trace_dir: str | None) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = device_events(prof)
     buckets: dict = {}
+    by_name: dict = {}
     for name, s, e in events:
         b = bucket_of(name)
         buckets[b] = buckets.get(b, 0.0) + (e - s) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
+    conv_ops = {e.key: e.count for e in prof.key_averages() if e.key.startswith("aten::") and "conv" in e.key}
     busy_ms = union_us([(s, e) for _, s, e in events]) / 1e3
     if trace_dir:
         os.makedirs(trace_dir, exist_ok=True)
@@ -102,10 +118,12 @@ def trace(fn, label: str, trace_dir: str | None) -> dict:
     first = [(name[:160], (e - s) / 1e3) for name, s, e in sorted(events, key=lambda ev: ev[1])[:FIRST_EVENTS]]
     return {"path": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / wall_ms, "buckets_sum_ms": sum(buckets.values()),
-            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])), "first_events": first}
+            "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])), "first_events": first,
+            "top_kernels_ms": [(name[:160], ms) for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]],
+            "conv_ops": conv_ops}
 
 
-def trace_train_step(dtype: str, seed: int, trace_dir: str | None) -> dict:
+def trace_train_step(backbone: str, dtype: str, seed: int, trace_dir: str | None) -> dict:
     """One train step at B = 64, 256x256, the config's optimizer settings,
     without the metric panel (as ``chip_smoke.py`` times it)."""
     from .core import FlameModel, LandmarkEmbedding
@@ -114,10 +132,43 @@ def trace_train_step(dtype: str, seed: int, trace_dir: str | None) -> dict:
 
     flame, emb = FlameModel.load(device="cuda"), LandmarkEmbedding.load(device="cuda")
     batch = synthetic_batch(torch.Generator(device="cuda").manual_seed(seed), flame, emb, 64, 256)
-    state = init_train_state({"dtype": dtype}, {"name": "adam", "lr": 1e-4}, torch.Generator().manual_seed(seed),
-                             "cuda", 5.0)
+    state = init_train_state({"backbone": backbone, "dtype": dtype}, {"name": "adam", "lr": 1e-4},
+                             torch.Generator().manual_seed(seed), "cuda", 5.0)
     step = build_train_step(img_size=256, warmup_steps=400, with_metrics=False)
-    return trace(lambda: step(state, flame, batch), f"train_step_B64_{dtype}", trace_dir)
+    return trace(lambda: step(state, flame, batch), f"{backbone}_train_step_B64_{dtype}", trace_dir)
+
+
+def trace_depthwise(dtype: str, trace_dir: str | None) -> dict:
+    """The mobilenet_w1 encoder's 13 depthwise convolutions alone, on the
+    inputs that a B = 256 batch of 256x256 images gives them (channels_last,
+    captured by hooks), forward and backward (input and weight gradients),
+    in the trunk's mode: fp32 with cuDNN's TF32 off, or bf16 under
+    autocast. Names the kernels that run them, and the layout transposes."""
+    from .models import MobileNetStages
+    from .models.dad3dnet import cudnn_tf32_off
+
+    encoder = MobileNetStages().cuda()
+    convs = [m.dw_conv.conv for m in encoder.modules() if hasattr(m, "dw_conv")]
+    inputs = []
+    hooks = [c.register_forward_pre_hook(lambda mod, args: inputs.append((mod, args[0].detach()))) for c in convs]
+    x = torch.randn(256, 256, 256, 3, device="cuda").permute(0, 3, 1, 2)
+    with torch.no_grad():
+        encoder(x)
+    for h in hooks:
+        h.remove()
+    context = (lambda: torch.autocast("cuda", dtype=torch.bfloat16)) if dtype == "bfloat16" else cudnn_tf32_off
+    inputs = [(mod, t.to(torch.bfloat16) if dtype == "bfloat16" else t) for mod, t in inputs]
+
+    def run():
+        for mod, t in inputs:
+            t = t.detach().requires_grad_()
+            with context():
+                y = mod(t)
+            y.backward(torch.ones_like(y))
+
+    result = trace(run, f"mobilenet_w1_depthwise_convs_B256_{dtype}", trace_dir)
+    result["shapes"] = [tuple(t.shape) for _, t in inputs]
+    return result
 
 
 def main(argv=None) -> int:
@@ -136,18 +187,22 @@ def main(argv=None) -> int:
         side = int(rng.integers(200, 500))
         x0, y0 = int(rng.integers(0, 1280 - side)), int(rng.integers(0, 720 - side))
         boxes.append([x0, y0, x0 + side, y0 + side])
-    results = []
-    for dtype in ("float32", "bfloat16"):
-        pred = FaceMeshPredictor({"img_size": 256, "model": {"backbone": "resnet50", "dtype": dtype}},
-                                 device="cuda", seed=args.seed)
-        randomize_bn_stats(pred.model, torch.Generator().manual_seed(args.seed + 1))
-        results.append(trace(lambda: pred.predict_batch(images), f"predict_batch_B256_{dtype}", args.trace_dir))
-        results.append(trace(lambda: pred.predict_frames(frames, bboxes=boxes, batch_size=64),
-                             f"predict_frames_B64_720p_{dtype}", args.trace_dir))
-        del pred
-        results.append(trace_train_step(dtype, args.seed, args.trace_dir))
-    for r in results:
-        print(json.dumps(r))
+    for backbone in ("resnet50", "mobilenet_w1"):
+        for dtype in ("float32", "bfloat16"):
+            pred = FaceMeshPredictor({"img_size": 256, "model": {"backbone": backbone, "dtype": dtype}},
+                                     device="cuda", seed=args.seed)
+            randomize_bn_stats(pred.model, torch.Generator().manual_seed(args.seed + 1))
+            results = [trace(lambda: pred.predict_batch(images), f"{backbone}_predict_batch_B256_{dtype}",
+                             args.trace_dir),
+                       trace(lambda: pred.predict_frames(frames, bboxes=boxes, batch_size=64),
+                             f"{backbone}_predict_frames_B64_720p_{dtype}", args.trace_dir)]
+            del pred
+            results.append(trace_train_step(backbone, dtype, args.seed, args.trace_dir))
+            if backbone == "mobilenet_w1":
+                results.append(trace_depthwise(dtype, args.trace_dir))
+            for r in results:
+                print(json.dumps(r), flush=True)
+            torch.cuda.empty_cache()
     return 0
 
 

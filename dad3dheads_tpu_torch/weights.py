@@ -1,67 +1,124 @@
 """Weights across the two packages: flax variables <-> the port's state dict,
-and a reader for the JAX package's ``.msgpack`` predictor checkpoints.
+a reader and writer of the JAX package's ``.msgpack`` predictor checkpoints,
+and the reference's torch checkpoints in the port's keys.
 
 The port's module tree uses the reference's torch state-dict keys, so the
-bridge is the inverse of the explicit flax-path -> torch-key name map of
-``tools/port_torch_weights.py`` (``dad3dnet_resnet50_name_map``). ``tools/``
-is not a package, so :func:`name_map` is a copy of that map, and a test holds
-the two equal. Layout conversions: conv HWIO <-> OIHW, dense (in, out) <->
+bridge is the inverse of the explicit flax-path -> torch-key name maps of
+``tools/port_torch_weights.py`` (``dad3dnet_name_map`` for both backbones,
+``backbone_name_map`` for the ImageNet backbone-only dialects). ``tools/`` is
+not a package, so :func:`name_map` and :func:`backbone_name_map` are copies
+of those maps, and tests hold them equal. Layout conversions: conv HWIO <->
+OIHW (a depthwise (k, k, 1, C) kernel <-> (C, 1, k, k)), dense (in, out) <->
 (out, in), the BiFPN 1x1 depthwise scale (1, C) <-> (C, 1, 1, 1).
+
+A flax tree or a state dict tells its backbone by its encoder's first
+layer (:func:`flax_backbone`, :func:`state_dict_backbone`): a checkpoint of
+one backbone refuses to load into a model of the other, with an error that
+names both.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
-RESNET50_STAGE_UNITS = (3, 4, 6, 3)
-BIFPN_NODES = ("p3_td", "p4_td", "p5_td", "p6_td", "p4_out", "p5_out", "p6_out", "p7_out")
+from .models.bifpn import BIFPN_NODES
+from .models.layers import ConvBlock, MaskPredictionHead, MixSepConv, PixelShuffleUpsample, SepConv
+from .models.mobilenet import MOBILENET_UNITS
+from .models.resnet import RESNET50_UNITS
+
+NameMap = Dict[str, Tuple[str, str]]
 
 
-def name_map() -> Dict[str, Tuple[str, str]]:
-    """flax path ('/'-joined, collection first) -> (torch state-dict key,
-    layout kind) for the resnet50 DAD-3DNet."""
-    m: Dict[str, Tuple[str, str]] = {}
+def _path(*parts: str) -> str:
+    """A '/'-joined flax path, empty parts left out."""
+    return "/".join(p for p in parts if p)
 
-    def conv_bn(fp: str, tp: str) -> None:
-        m[f"params/{fp}/Conv_0/kernel"] = (f"{tp}.conv.weight", "conv")
-        m[f"params/{fp}/BatchNorm_0/scale"] = (f"{tp}.bn.weight", "id")
-        m[f"params/{fp}/BatchNorm_0/bias"] = (f"{tp}.bn.bias", "id")
-        m[f"batch_stats/{fp}/BatchNorm_0/mean"] = (f"{tp}.bn.running_mean", "id")
-        m[f"batch_stats/{fp}/BatchNorm_0/var"] = (f"{tp}.bn.running_var", "id")
 
-    conv_bn("encoder/init_block/ConvBN_0", "encoder.model.init_block.conv")
-    for s, units in enumerate(RESNET50_STAGE_UNITS, start=1):
+def _conv_bn_entries(m: NameMap, fp: str, conv_key: str, bn_key: str, conv: str = "Conv_0",
+                     bn: str = "BatchNorm_0") -> None:
+    """A bias-free conv and its BN: flax ``fp/{conv,bn}`` -> torch keys."""
+    m[_path("params", fp, conv, "kernel")] = (f"{conv_key}.weight", "conv")
+    _bn_entries(m, fp, bn_key, bn)
+
+
+def _bn_entries(m: NameMap, fp: str, tp: str, bn: str = "BatchNorm_0") -> None:
+    m[_path("params", fp, bn, "scale")] = (f"{tp}.weight", "id")
+    m[_path("params", fp, bn, "bias")] = (f"{tp}.bias", "id")
+    m[_path("batch_stats", fp, bn, "mean")] = (f"{tp}.running_mean", "id")
+    m[_path("batch_stats", fp, bn, "var")] = (f"{tp}.running_var", "id")
+
+
+def _resnet50_encoder_entries(flax_prefix: str, torch_prefix: str) -> NameMap:
+    """pytorchcv resnet50 feature extractor (``init_block.conv``,
+    ``stage{S}.unit{U}.body.conv{1,2,3}``, ``unit1.identity_conv``)."""
+    m: NameMap = {}
+    _conv_bn_entries(m, f"{flax_prefix}/init_block/ConvBN_0", f"{torch_prefix}.init_block.conv.conv",
+                     f"{torch_prefix}.init_block.conv.bn")
+    for s, units in enumerate(RESNET50_UNITS, start=1):
         for u in range(units):
-            fp = f"encoder/stage{s}/Bottleneck_{u}"
-            tp = f"encoder.model.stage{s}.unit{u + 1}"
+            fp, tp = f"{flax_prefix}/stage{s}/Bottleneck_{u}", f"{torch_prefix}.stage{s}.unit{u + 1}"
             for i in range(3):
-                conv_bn(f"{fp}/ConvBN_{i}", f"{tp}.body.conv{i + 1}")
+                _conv_bn_entries(m, f"{fp}/ConvBN_{i}", f"{tp}.body.conv{i + 1}.conv", f"{tp}.body.conv{i + 1}.bn")
             if u == 0:  # the only unit with a projection shortcut
-                conv_bn(f"{fp}/ConvBN_3", f"{tp}.identity_conv")
+                _conv_bn_entries(m, f"{fp}/ConvBN_3", f"{tp}.identity_conv.conv", f"{tp}.identity_conv.bn")
+    return m
 
-    def bn(fp: str, tp: str) -> None:
-        m[f"params/{fp}/BatchNorm_0/scale"] = (f"{tp}.weight", "id")
-        m[f"params/{fp}/BatchNorm_0/bias"] = (f"{tp}.bias", "id")
-        m[f"batch_stats/{fp}/BatchNorm_0/mean"] = (f"{tp}.running_mean", "id")
-        m[f"batch_stats/{fp}/BatchNorm_0/var"] = (f"{tp}.running_var", "id")
+
+def _torchvision_encoder_entries(flax_prefix: str) -> NameMap:
+    """torchvision.models.resnet50 naming (``conv1``/``bn1``,
+    ``layer{1-4}.{i}.conv{1-3}``/``bn{1-3}``, ``downsample.{0,1}``)."""
+    m: NameMap = {}
+    _conv_bn_entries(m, f"{flax_prefix}/init_block/ConvBN_0", "conv1", "bn1")
+    for s, units in enumerate(RESNET50_UNITS, start=1):
+        for u in range(units):
+            fp, tp = f"{flax_prefix}/stage{s}/Bottleneck_{u}", f"layer{s}.{u}"
+            for i in range(3):
+                _conv_bn_entries(m, f"{fp}/ConvBN_{i}", f"{tp}.conv{i + 1}", f"{tp}.bn{i + 1}")
+            if u == 0:
+                _conv_bn_entries(m, f"{fp}/ConvBN_3", f"{tp}.downsample.0", f"{tp}.downsample.1")
+    return m
+
+
+def _mobilenet_encoder_entries(flax_prefix: str, torch_prefix: str) -> NameMap:
+    """pytorchcv mobilenet_w1 feature extractor: flax ``init_conv``/``init_bn``
+    then ``s{S}_{u}`` blocks with Conv_0/BatchNorm_0 (depthwise) and
+    Conv_1/BatchNorm_1 (pointwise)."""
+    m: NameMap = {f"params/{flax_prefix}/init_conv/kernel": (f"{torch_prefix}.init_block.conv.weight", "conv")}
+    _bn_entries(m, flax_prefix, f"{torch_prefix}.init_block.bn", "init_bn")
+    for s, units in enumerate(MOBILENET_UNITS, start=1):
+        for u in range(units):
+            fp, tp = f"{flax_prefix}/s{s}_{u}", f"{torch_prefix}.stage{s}.unit{u + 1}"
+            _conv_bn_entries(m, fp, f"{tp}.dw_conv.conv", f"{tp}.dw_conv.bn")
+            _conv_bn_entries(m, fp, f"{tp}.pw_conv.conv", f"{tp}.pw_conv.bn", "Conv_1", "BatchNorm_1")
+    return m
+
+
+def name_map(backbone: str = "resnet50") -> NameMap:
+    """flax path ('/'-joined, collection first) -> (torch state-dict key,
+    layout kind) for the DAD-3DNet of ``backbone``."""
+    if backbone == "resnet50":
+        m = _resnet50_encoder_entries("encoder", "encoder.model")
+    elif backbone == "mobilenet_w1":
+        m = _mobilenet_encoder_entries("encoder", "encoder.model")
+    else:
+        raise KeyError(f"unknown backbone {backbone!r}: resnet50 or mobilenet_w1")
 
     for p in ("p3", "p4", "p5", "p6"):
         m[f"params/bifpn/{p}/kernel"] = (f"bifpn.{p}.weight", "conv")
         m[f"params/bifpn/{p}/bias"] = (f"bifpn.{p}.bias", "id")
     m["params/bifpn/p7/Conv_0/kernel"] = ("bifpn.p7.conv.weight", "conv")
     m["params/bifpn/p7/Conv_0/bias"] = ("bifpn.p7.conv.bias", "id")
-    bn("bifpn/p7", "bifpn.p7.bn")
+    _bn_entries(m, "bifpn/p7", "bifpn.p7.bn")
     for k in range(2):
         m[f"params/bifpn/block{k}/w1"] = (f"bifpn.bifpn.{k}.w1", "id")
         m[f"params/bifpn/block{k}/w2"] = (f"bifpn.bifpn.{k}.w2", "id")
         for node in BIFPN_NODES:
             fp, tp = f"bifpn/block{k}/{node}", f"bifpn.bifpn.{k}.{node}"
             m[f"params/{fp}/depthwise_scale"] = (f"{tp}.depthwise.weight", "dw")
-            m[f"params/{fp}/Conv_0/kernel"] = (f"{tp}.pointwise.weight", "conv")
-            bn(fp, f"{tp}.bn")
+            _conv_bn_entries(m, fp, f"{tp}.pointwise", f"{tp}.bn")
 
     m["params/heatmap_head/kernel"] = ("head.heatmap.weight", "conv")
     m["params/heatmap_head/bias"] = ("head.heatmap.bias", "id")
@@ -72,6 +129,17 @@ def name_map() -> Dict[str, Tuple[str, str]]:
             m[f"params/{fh}/{fd}/kernel"] = (f"{th}.logit_image.{td}.weight", "dense")
             m[f"params/{fh}/{fd}/bias"] = (f"{th}.logit_image.{td}.bias", "id")
     return m
+
+
+def backbone_name_map(dialect: str) -> NameMap:
+    """flax path -> (source key, kind) for an ImageNet-pretrained resnet50
+    backbone alone: ``pytorchcv`` (a full pytorchcv model's ``features.*``
+    keys) or ``torchvision`` (torchvision.models.resnet50 naming)."""
+    if dialect == "pytorchcv":
+        return _resnet50_encoder_entries("encoder", "features")
+    if dialect == "torchvision":
+        return _torchvision_encoder_entries("encoder")
+    raise KeyError(f"unknown backbone dialect {dialect!r}")
 
 
 def _to_torch_layout(value: np.ndarray, kind: str) -> np.ndarray:
@@ -105,13 +173,39 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax ``{"params": ..., "batch_stats": ...}`` (nested dicts of arrays)
-    -> the port's state dict, ready for ``load_state_dict(strict=True)``.
+def flax_backbone(variables: Mapping[str, Any]) -> str:
+    """The backbone of a flax DAD-3DNet tree, from its encoder's first layer."""
+    encoder = variables.get("params", {}).get("encoder", {})
+    if "init_conv" in encoder:
+        return "mobilenet_w1"
+    if "init_block" in encoder:
+        return "resnet50"
+    raise KeyError("flax tree has no encoder of a known backbone (params/encoder/init_conv or init_block)")
 
-    Raises if a flax leaf has no entry in the map or a map entry has no leaf."""
-    flat = _flatten(variables)
-    m = name_map()
+
+def state_dict_backbone(state_dict: Mapping[str, Any]) -> str:
+    """The backbone of a port (or reference) DAD-3DNet state dict."""
+    if "encoder.model.init_block.bn.weight" in state_dict:
+        return "mobilenet_w1"
+    if "encoder.model.init_block.conv.bn.weight" in state_dict:
+        return "resnet50"
+    raise KeyError("state dict has no encoder of a known backbone (encoder.model.init_block.*)")
+
+
+def _check_backbone(found: str, model: torch.nn.Module, what: str) -> None:
+    """Raise if weights of backbone ``found`` are headed for a model of
+    another backbone."""
+    expected = model.backbone
+    if found != expected:
+        raise ValueError(
+            f"{what} holds a {found} DAD-3DNet, but the model is {expected}: set the model "
+            f"config's backbone to {found!r}, or load a {expected} checkpoint"
+        )
+
+
+def _state_dict_by_map(flat: Dict[str, Any], m: NameMap) -> Dict[str, torch.Tensor]:
+    """flat flax leaves -> torch tensors under ``m``; raises unless the leaves
+    and the map's paths are the same set."""
     unknown = sorted(set(flat) - set(m))
     missing = sorted(set(m) - set(flat))
     if unknown or missing:
@@ -125,11 +219,21 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``{"params": ..., "batch_stats": ...}`` (nested dicts of arrays)
+    of either backbone (:func:`flax_backbone`) -> the port's state dict,
+    ready for ``load_state_dict(strict=True)``.
+
+    Raises if a flax leaf has no entry in the map or a map entry has no leaf."""
+    return _state_dict_by_map(_flatten(variables), name_map(flax_backbone(variables)))
+
+
 def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The inverse: the port's state dict -> nested flax variables of numpy
-    arrays. ``num_batches_tracked`` has no flax counterpart and is dropped."""
+    """The inverse: the port's state dict, of either backbone, -> nested flax
+    variables of numpy arrays. ``num_batches_tracked`` has no flax
+    counterpart and is dropped."""
     variables: Dict[str, Any] = {}
-    for path, (key, kind) in name_map().items():
+    for path, (key, kind) in name_map(state_dict_backbone(state_dict)).items():
         value = state_dict[key].detach().cpu().float().numpy()
         node = variables
         *parents, leaf = path.split("/")
@@ -137,6 +241,81 @@ def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(_to_flax_layout(value, kind))
     return variables
+
+
+def layer_name_map(module: torch.nn.Module) -> NameMap:
+    """flax path -> (torch key, kind) for one module of the layer zoo
+    (``models/layers.py``), under flax's auto-names: ``Conv_i`` and
+    ``BatchNorm_i`` in creation order inside a block, ``SepConv_i`` (etc.)
+    for a head's blocks."""
+    m: NameMap = {}
+    if isinstance(module, ConvBlock):
+        _conv_bn_entries(m, "", "conv", "bn")
+    elif isinstance(module, SepConv):
+        _conv_bn_entries(m, "", "dw_conv.conv", "dw_conv.bn")
+        _conv_bn_entries(m, "", "pw_conv.conv", "pw_conv.bn", "Conv_1", "BatchNorm_1")
+    elif isinstance(module, MixSepConv):
+        n = len(module.dw_convs)
+        for i in range(n):
+            m[f"params/Conv_{i}/kernel"] = (f"dw_convs.{i}.weight", "conv")
+        _conv_bn_entries(m, "", "pw_conv.conv", "pw_conv.bn", f"Conv_{n}")
+    elif isinstance(module, PixelShuffleUpsample):
+        m["params/Conv_0/kernel"] = ("conv.weight", "conv")
+        m["params/Conv_0/bias"] = ("conv.bias", "id")
+    elif isinstance(module, MaskPredictionHead):
+        for i, block in enumerate(module.blocks):
+            name = f"{type(block).__name__}_{i}"
+            for path, (key, kind) in layer_name_map(block).items():
+                collection, rest = path.split("/", 1)
+                m[_path(collection, name, rest)] = (f"blocks.{i}.{key}", kind)
+        m["params/Conv_0/kernel"] = ("logit.weight", "conv")
+        m["params/Conv_0/bias"] = ("logit.bias", "id")
+    else:
+        raise TypeError(f"no flax name map for {type(module).__name__}")
+    return m
+
+
+def layer_state_dict_from_flax(module: torch.nn.Module, variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax variables of a layer-zoo module -> its state dict (strict)."""
+    return _state_dict_by_map(_flatten(variables), layer_name_map(module))
+
+
+def state_dict_from_reference(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference DAD-3DNet checkpoint's tensors (a TorchScript module's
+    state dict, or a Lightning checkpoint's ``state_dict`` with its
+    ``model.`` prefix) -> the port's state dict, for either backbone. The
+    port's keys are the reference's, so this strips the prefix and holds the
+    keys to the backbone's map: raises on a missing or an unknown tensor."""
+    sd = {k[len("model."):] if k.startswith("model.") else k: v for k, v in state_dict.items()}
+    m = name_map(state_dict_backbone(sd))
+    wanted = {key for key, _ in m.values()}
+    tensors = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    missing, unknown = sorted(wanted - set(tensors)), sorted(set(tensors) - wanted)
+    if missing or unknown:
+        raise KeyError(f"reference checkpoint does not match the map: unknown {unknown[:5]}, missing {missing[:5]}")
+    out = {k: torch.as_tensor(v) for k, v in tensors.items()}
+    for key in wanted:
+        if key.endswith(".running_var"):
+            out[key[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return out
+
+
+def state_dict_from_backbone(state_dict: Mapping[str, Any], dialect: str) -> Dict[str, torch.Tensor]:
+    """An ImageNet-pretrained resnet50's tensors in the ``pytorchcv`` or
+    ``torchvision`` naming -> the port's encoder keys (``encoder.model.*``),
+    for ``load_state_dict(strict=False)`` into a resnet50 DAD-3DNet (the rest
+    keeps its initialisation). The classifier (``output.*`` / ``fc.*``) is
+    dropped; raises on any other tensor the map does not consume, or a
+    missing one."""
+    port = name_map("resnet50")
+    source = backbone_name_map(dialect)
+    by_source = {src: port[path][0] for path, (src, _) in source.items()}
+    tensors = {k: v for k, v in state_dict.items()
+               if not k.endswith("num_batches_tracked") and not k.startswith(("output.", "fc."))}
+    missing, unknown = sorted(set(by_source) - set(tensors)), sorted(set(tensors) - set(by_source))
+    if missing or unknown:
+        raise KeyError(f"{dialect} backbone does not match the map: unknown {unknown[:5]}, missing {missing[:5]}")
+    return {by_source[k]: torch.as_tensor(v) for k, v in tensors.items()}
 
 
 def _bf16_to_f32(buffer: bytes) -> np.ndarray:
@@ -181,8 +360,11 @@ def load_flax_msgpack(path: str) -> Dict[str, Any]:
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:
-    """Load a JAX-package ``.msgpack`` predictor checkpoint into ``model``."""
-    model.load_state_dict(state_dict_from_flax(load_flax_msgpack(path)), strict=True)
+    """Load a JAX-package ``.msgpack`` predictor checkpoint into ``model``;
+    raises if it holds the other backbone's network."""
+    variables = load_flax_msgpack(path)
+    _check_backbone(flax_backbone(variables), model, f"checkpoint {path}")
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
 
 
 def _ndarray_to_ext(arr: np.ndarray) -> bytes:
@@ -222,7 +404,8 @@ def save_flax_msgpack(variables: Dict[str, Any], path: str) -> str:
 def _param_paths(model: torch.nn.Module) -> list:
     """(flax path under ``params/``, layout kind) of each parameter, in
     ``model.parameters()`` order."""
-    by_key = {key: (path, kind) for path, (key, kind) in name_map().items() if path.startswith("params/")}
+    m = name_map(model.backbone)
+    by_key = {key: (path, kind) for path, (key, kind) in m.items() if path.startswith("params/")}
     return [by_key[name] for name, _ in model.named_parameters()]
 
 
@@ -265,7 +448,9 @@ def train_state_from_flax(
     ``variables`` {"params", "batch_stats"} into ``model``, and ``adam``
     {"mu", "nu", "count"} (the ``ScaleByAdamState`` inside its
     clip_by_global_norm chain) into ``optimizer``, a ``torch.optim.Adam``
-    over ``model.parameters()``."""
+    over ``model.parameters()``. Raises if the state is the other
+    backbone's."""
+    _check_backbone(flax_backbone(variables), model, "train state")
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     state = adam_state_from_flax(adam["mu"], adam["nu"], adam["count"], model)
     # load_state_dict moves the moments to each parameter's device

@@ -146,10 +146,10 @@ def test_decode_heatmap_branch_matches_jax():
 
 
 def test_port_runs_without_jax():
-    """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's batch,
-    frames and render paths run on the CPU, its training, dataset and
-    benchmark modules import, and neither the JAX package nor jax, flax or
-    optax is ever imported (the training CLI runs so in
+    """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's batch
+    path (both backbones), frames and render paths run on the CPU, its
+    layer zoo, training, dataset and benchmark modules import, and neither
+    the JAX package nor jax, flax or optax is ever imported (the training CLI runs so in
     tests/test_torch_train_cli.py, the acceptance CLI in
     tests/test_torch_acceptance.py)."""
     code = textwrap.dedent(
@@ -165,6 +165,10 @@ def test_port_runs_without_jax():
         from dad3dheads_tpu_torch.benchmark_harness import DADEvaluator, generate_gt, generate_submission
         from dad3dheads_tpu_torch.data import DataLoader, FlameDataset, HeatmapCoder
         from dad3dheads_tpu_torch.render import RenderPipeline
+        from dad3dheads_tpu_torch.models import MaskPredictionHead, MobileNetStages, pixel_shuffle
+        import dad3dheads_tpu_torch.models.layers, dad3dheads_tpu_torch.models.mobilenet
+        m = FaceMeshPredictor({"img_size": 64, "model": {"backbone": "mobilenet_w1"}}, device="cpu", seed=1)
+        assert m.predict_batch(np.zeros((1, 64, 64, 3), np.uint8))["3dmm_params"].shape == (1, 413)
         p = FaceMeshPredictor({"img_size": 64}, device="cpu", seed=1)
         out = p.predict_batch(np.zeros((2, 64, 64, 3), np.uint8))
         assert out["3d_vertices"].shape == (2, 5023, 3), out["3d_vertices"].shape
