@@ -98,10 +98,31 @@ use. Phases, each of which asserts (any failure exits non-zero):
      img/s and bit-for-bit bf16 routes, and train-step img/s at B = 64 and
      128, fp32 and bf16. This path's launches of the normalize, resample,
      blendshape and blendshape backward kernels (each at least one) go into
-     the kernels line as ``launches_mobilenet_path``.
+     the kernels line as ``launches_mobilenet_path``;
+  9. the deployment artifact (``api/export.py``), resnet50 at 256x256 with
+     phase 4's weights, fp32 and the bf16 trunk: ``export_predictor`` on the
+     card (each program's trace seconds, the artifact's MB); a child process
+     that cannot import the models, the FLAME code and assets or JAX loads
+     it on the card, checks that the ``decode`` graph holds the blendshape
+     op and the ``frames`` graph the resample op (and no plain resample),
+     and serves ``predict_batch`` on phase 4's 64 images, ``predict_frames``
+     on phase 4b's frames and boxes and ``predict_images`` on 131 images
+     (chunks of 64, 64 and 3), which are held against the live predictor at
+     phase 4's tolerances (``predict_images`` against the live network on
+     the same chunks, normalized as the artifact's host does it); the
+     child's launches go into the kernels line as ``launches_export_path``
+     (at least one blendshape and one resample launch, none of the others);
+     the artifact's ``predict_batch`` img/s at B=256 on a pre-normalized
+     fp32 batch (beside the live predictor on the same batch and phase 5's
+     uint8 rate) and ``predict_frames`` img/s on 256 frames of 1280x720
+     (beside phase 5b's); then ``cli.train --synthetic 4 export_aot=true`` at
+     full width writes an artifact (card and CPU programs) that loads on the
+     card and serves what its ``.msgpack`` gives the live predictor.
 
 Every launch counter is set to 0 just before the path that owns it is driven
-(4, 4b, 4c, 6, 7 and each entry point of 8) and read just after. The line before the last is a JSON object
+(4, 4b, 4c, 6, 7, each entry point of 8 and each child of 9) and read just
+after. The kernels are ``torch.library`` custom operators; each counts its
+launches in its CUDA body, so the launches of an exported program count. The line before the last is a JSON object
 with one entry per kernel: its launches on that path, its largest gap to the
 plain version, its time on the card and with the host's dispatch
 (``ms_host``), the plain version's, a library call's where one computes the
@@ -171,6 +192,7 @@ TRAIN_B = 64  # configs/train_stage/flame_landmarks.yaml
 MODES = ("imagenet", "mean", "none")
 KERNELS = ("blend_shapes_fused", "normalize_images", "resample_normalize", "rasterize_buffers",
            "blend_shapes_fused_backward")
+SMI = ""  # the card's name and power limit, as nvidia-smi gives them (phase 1)
 COUNTED = (blend_shapes_fused, normalize_images, resample_normalize, rasterize_buffers, blend_shapes_fused_backward)
 
 
@@ -203,6 +225,8 @@ def phase1_card() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
+    global SMI
+    SMI = smi[0]
     print(smi[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
@@ -632,14 +656,19 @@ def phase4_slice(config: dict, tag: str = "slice") -> tuple[FaceMeshPredictor, d
     return pred, launches
 
 
+def frames_4b_sizes(n: int) -> tuple[np.random.Generator, list]:
+    """Phase 4b's generator and ``n`` frame sizes up to 1920x1080; its frames
+    and boxes are ``seeded_frames`` and then ``face_boxes`` of them."""
+    sizes_hw = [(512, 640), (1080, 1920), (720, 1280), (480, 854), (1080, 1440), (360, 640), (600, 800),
+                (768, 1024)]
+    return np.random.default_rng(SEED + 30), (sizes_hw * (n // len(sizes_hw) + 1))[:n]
+
+
 def phase4b_frames(pred: FaceMeshPredictor, config: dict, n: int = FRAMES_B, tag: str = "frames",
                    device_images: bool = True) -> tuple[list, dict]:
     """predict_frames on ``n`` frames of mixed sizes against the CPU on 4;
     with ``device_images``, predict_images on a CUDA tensor too."""
-    rng = np.random.default_rng(SEED + 30)
-    sizes_hw = [(512, 640), (1080, 1920), (720, 1280), (480, 854), (1080, 1440), (360, 640), (600, 800),
-                (768, 1024)]
-    sizes_hw = (sizes_hw * (n // len(sizes_hw) + 1))[:n]
+    rng, sizes_hw = frames_4b_sizes(n)
     frames = seeded_frames(rng, sizes_hw)
     boxes = face_boxes(rng, sizes_hw)
 
@@ -1187,6 +1216,233 @@ def phase7_dataset(synthetic: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# 9: the deployment artifact
+# --------------------------------------------------------------------------
+
+IMAGES_N = 2 * FRAMES_B + 3  # predict_images: two whole chunks and a ragged one
+# what the artifact's loader and server must not import
+EXPORT_BLOCKED = ("dad3dheads_tpu_torch.models", "dad3dheads_tpu_torch.core.flame", "dad3dheads_tpu_torch.assets",
+                  "dad3dheads_tpu", "jax", "jaxlib", "flax")
+# The child: load the artifact on the card in a process that cannot import
+# the models, the FLAME code and assets or JAX, serve the three entry points
+# on the parent's inputs (made from the same seeds), then time predict_batch
+# and predict_frames. It writes its outputs to an .npz and prints one JSON
+# line: load seconds, the kernel ops' nodes in its graphs, launch counts of
+# the serving run, rates.
+EXPORT_CHILD = r"""
+import importlib.abc, json, sys, time
+
+BLOCKED = %r
+
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+            raise ImportError("blocked: " + name)
+
+
+sys.meta_path.insert(0, Block())
+import numpy as np
+import torch
+
+from dad3dheads_tpu_torch.api import ExportedFaceMeshPredictor
+from dad3dheads_tpu_torch.kernel_timing import face_boxes, median_ms, seeded_frames
+from dad3dheads_tpu_torch.ops.blendshapes import blend_shapes_fused, blend_shapes_fused_backward
+from dad3dheads_tpu_torch.ops.preprocess import normalize_images, normalize_scale_bias
+from dad3dheads_tpu_torch.ops.resample import resample_normalize
+
+a = json.loads(sys.argv[1])
+S = a["img"]
+t0 = time.perf_counter()
+pred = ExportedFaceMeshPredictor(a["path"], device="cuda")
+load_s = time.perf_counter() - t0
+targets = {name: [str(n.target) for n in prog.graph.nodes if n.op == "call_function"]
+           for name, prog in pred._programs.items()}
+nodes = {"decode_blend": targets["decode"].count("dad3d.blend_shapes.default"),
+         "frames_resample": targets["frames"].count("dad3d.resample_normalize_u8.default"),
+         "frames_plain_resample": sum("einsum" in t or "arange" in t for t in targets["frames"]),
+         "pipeline_dad3d": sum(t.startswith("dad3d.") for t in targets["pipeline"])}
+counted = (blend_shapes_fused, normalize_images, resample_normalize, blend_shapes_fused_backward)
+for fn in counted:
+    fn.launches = 0
+images = np.random.default_rng(a["batch_seed"]).integers(0, 256, (a["batch"], S, S, 3), dtype=np.uint8)
+batch = pred.predict_batch(images)
+rng = np.random.default_rng(a["frames_seed"])
+sizes = [tuple(hw) for hw in a["frame_sizes"]]
+frames = seeded_frames(rng, sizes)
+boxes = face_boxes(rng, sizes)
+framed = pred.predict_frames(frames, bboxes=boxes, batch_size=a["frames_batch"])
+imgs = list(np.random.default_rng(a["images_seed"]).integers(0, 256, (a["images"], S, S, 3), dtype=np.uint8))
+imaged = pred.predict_images(imgs, batch_size=a["frames_batch"])
+torch.cuda.synchronize()
+launches = {fn.__name__: fn.launches for fn in counted}
+raster = sys.modules.get("dad3dheads_tpu_torch.render.rasterizer")
+launches["rasterize_buffers"] = raster.rasterize_buffers.launches if raster else 0
+out = {"batch_" + k: v for k, v in batch.items()}
+for tag, results in (("frames_", framed), ("images_", imaged)):
+    out.update({tag + k: np.stack([r[k] for r in results]) for k in results[0]})
+np.savez(a["out"], **out)
+
+scale, bias = normalize_scale_bias("imagenet")
+x = np.random.default_rng(a["rate_seed"]).integers(0, 256, (a["rate_batch"], S, S, 3), dtype=np.uint8)
+x = x.astype(np.float32) * scale + bias
+batch_ms = median_ms(lambda: pred.predict_batch(x), reps=5, warmup=2)
+rng = np.random.default_rng(a["rate_frames_seed"])
+n = a["rate_frames"]
+sizes = [(720, 1280)] * n
+frames = seeded_frames(rng, sizes[:16]) * (n // 16)
+boxes = face_boxes(rng, sizes)
+frames_ms = median_ms(lambda: pred.predict_frames(frames, bboxes=boxes, batch_size=a["frames_batch"]),
+                      reps=5, warmup=1)
+print(json.dumps({"load_s": load_s, "nodes": nodes, "launches": launches,
+                  "predict_batch_ips": a["rate_batch"] / batch_ms * 1e3, "predict_frames_ips": n / frames_ms * 1e3}))
+""" % (EXPORT_BLOCKED,)
+
+
+def _stack(results: list) -> dict:
+    return {k: np.stack([r[k] for r in results]) for k in results[0]}
+
+
+def _gaps(got: dict, ref: dict, tol: dict, tag: str) -> dict:
+    gaps = {}
+    for key, atol in tol.items():
+        gaps[key] = float(np.abs(np.asarray(got[key], np.float64) - np.asarray(ref[key], np.float64)).max())
+        print(f"[{tag}] artifact vs live {key}: max abs gap {gaps[key]:.3g} (atol {atol})")
+        assert got[key].shape == ref[key].shape and gaps[key] <= atol, (tag, key, got[key].shape, gaps[key])
+    return gaps
+
+
+def _images_reference(live: FaceMeshPredictor, images: np.ndarray, chunk: int) -> dict:
+    """The live network on predict_images' chunks of network-size images,
+    normalized as the artifact's host does it (``preprocess_image_np``), so
+    that both run the same batches on the same bits; the readjustment of a
+    network-size image is the identity up to fp32 rounding and the points'
+    truncation to ints."""
+    from dad3dheads_tpu_torch.ops.preprocess import preprocess_image_np
+
+    outs = [live.predict_batch(np.stack([preprocess_image_np(im, IMG)[0] for im in images[lo : lo + chunk]]))
+            for lo in range(0, len(images), chunk)]
+    out = {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+    for key in ("3dmm_params", "projected_vertices"):  # per image: (1, 413), (1, V, 2)
+        out[key] = out[key][:, None]
+    return out
+
+
+def _export_one(live: FaceMeshPredictor, name: str, live_ips: dict, tmp: str) -> tuple[dict, dict]:
+    """Export ``live``'s network on the card, serve the artifact in a child
+    process, hold it against ``live``; returns (this run's numbers, the
+    child's launches)."""
+    from dad3dheads_tpu_torch.api.export import export_predictor, read_meta
+
+    path = os.path.join(tmp, f"{name}.aot.zip")
+    t0 = time.perf_counter()
+    export_predictor(live.model, live.flame, path, img_size=IMG, devices=("cuda",))
+    seconds = time.perf_counter() - t0
+    meta = read_meta(path)
+    mb = os.path.getsize(path) / 1e6
+    print(f"[export] resnet50 {name}: exported in {seconds:.1f} s ({', '.join(f'{k} {v:.2f} s' for k, v in meta['export_seconds'].items())}), "
+          f"{mb:.1f} MB")
+    assert meta["devices"] == ["cuda"] and meta["dtype"] == str(live.model.dtype).replace("torch.", "")
+
+    rng, sizes_hw = frames_4b_sizes(FRAMES_B)
+    args = {"path": path, "img": IMG, "out": os.path.join(tmp, f"{name}.npz"), "batch": SLICE_B, "batch_seed": SEED,
+            "frame_sizes": sizes_hw, "frames_seed": SEED + 30, "frames_batch": FRAMES_B, "images": IMAGES_N,
+            "images_seed": SEED + 90, "rate_batch": BENCH_B, "rate_seed": SEED + 2, "rate_frames": 4 * FRAMES_B,
+            "rate_frames_seed": SEED + 40}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, json.dumps(args)], capture_output=True, text=True,
+                          timeout=600)
+    child_s = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"[export] {name}: child process {child_s:.1f} s (artifact loaded in {report['load_s']:.2f} s), "
+          f"graph nodes {report['nodes']}, launches {report['launches']}")
+    nodes, launches = report["nodes"], report["launches"]
+    assert nodes["decode_blend"] == 1 and nodes["frames_resample"] == 1, nodes
+    assert nodes["frames_plain_resample"] == 0 and nodes["pipeline_dad3d"] == 0, nodes
+    assert launches["blend_shapes_fused"] >= 1 and launches["resample_normalize"] >= 1, launches
+    assert launches["normalize_images"] == launches["blend_shapes_fused_backward"] == 0, launches
+    assert launches["rasterize_buffers"] == 0, launches
+
+    got = dict(np.load(args["out"]))
+    pick = lambda prefix: {k[len(prefix):]: v for k, v in got.items() if k.startswith(prefix)}
+    images = np.random.default_rng(SEED).integers(0, 256, (SLICE_B, IMG, IMG, 3), dtype=np.uint8)
+    batch_tol = {"3dmm_params": 1e-3, "3d_vertices": 1e-3, "points": 0.5, "projected_vertices": 0.5}
+    gaps = {"predict_batch": _gaps(pick("batch_"), live.predict_batch(images), batch_tol, f"export {name} batch")}
+    frames, boxes = seeded_frames(rng, sizes_hw), face_boxes(rng, sizes_hw)
+    frames_ref = _stack(live.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B))
+    frames_tol = {**batch_tol, "points": 1.0}  # integers after the readjustment
+    gaps["predict_frames"] = _gaps(pick("frames_"), frames_ref, frames_tol, f"export {name} frames")
+    imgs = np.random.default_rng(SEED + 90).integers(0, 256, (IMAGES_N, IMG, IMG, 3), dtype=np.uint8)
+    gaps["predict_images"] = _gaps(pick("images_"), _images_reference(live, imgs, FRAMES_B), frames_tol,
+                                   f"export {name} images")
+    print(f"[export] {SMI}: {name} artifact predict_batch B={BENCH_B} (pre-normalized fp32) "
+          f"{report['predict_batch_ips']:.1f} img/s, live {live_ips['batch']:.1f} img/s on the same batch, phase 5 "
+          f"(uint8) {live_ips['phase5']:.1f}; predict_frames {4 * FRAMES_B} frames 1280x720 "
+          f"{report['predict_frames_ips']:.1f} img/s, phase 5b live {live_ips['frames']:.1f}")
+    numbers = {"export_s": seconds, "export_seconds": meta["export_seconds"], "artifact_mb": mb,
+               "load_s": report["load_s"], "child_s": child_s, "gaps": gaps,
+               "predict_batch_ips": report["predict_batch_ips"], "live_predict_batch_ips_fp32_input": live_ips["batch"],
+               "predict_frames_ips": report["predict_frames_ips"]}
+    return numbers, launches
+
+
+def _train_export_aot(tmp: str) -> dict:
+    """cli.train at full width with ``export_aot=true``: the artifact beside
+    the msgpack, with programs for the card and the CPU, loads on the card and
+    serves what the msgpack gives the live predictor."""
+    from dad3dheads_tpu_torch.api.export import ExportedFaceMeshPredictor, read_meta
+    from dad3dheads_tpu_torch.cli.train import main as train_main
+
+    exp = os.path.join(tmp, "exp")
+    t0 = time.perf_counter()
+    train_main(["--config", "configs/train.yaml", "--synthetic", "4", "--device", "cuda", "max_epochs=1",
+                "export_aot=true", f"experiment_dir={exp}"])
+    seconds = time.perf_counter() - t0
+    ck = os.path.join(exp, "checkpoints")
+    aot = os.path.join(ck, "dad_3dnet.aot.zip")
+    meta = read_meta(aot)
+    print(f"[export] cli.train --synthetic 4 export_aot=true: {seconds:.1f} s, artifact {os.path.getsize(aot) / 1e6:.1f} MB "
+          f"for {meta['devices']}, traces {', '.join(f'{k} {v:.2f} s' for k, v in meta['export_seconds'].items())}")
+    assert meta["devices"] == ["cuda", "cpu"] and meta["img_size"] == IMG
+    images = np.random.default_rng(SEED + 62).integers(0, 256, (4, IMG, IMG, 3), dtype=np.uint8)
+    got = ExportedFaceMeshPredictor(aot, device="cuda").predict_batch(images)
+    live = FaceMeshPredictor({"img_size": IMG}, checkpoint_path=os.path.join(ck, "dad_3dnet.msgpack"), device="cuda",
+                             require_weights=True)
+    gaps = _gaps(got, live.predict_batch(images), {"3dmm_params": 1e-3, "3d_vertices": 1e-3, "points": 0.5,
+                                                    "projected_vertices": 0.5}, "export train")
+    return {"train_s": seconds, "export_seconds": meta["export_seconds"], "gaps": gaps}
+
+
+def phase9_export(config: dict, phase5_ips: dict, phase5b_ips: dict) -> dict:
+    """The deployment artifact at the resnet50's full width, fp32 and the
+    bf16 trunk: exported on the card, served from a child process that
+    cannot import the models, held against the live predictor; then
+    cli.train's export_aot. Returns the path's launches (both children)."""
+    pred = FaceMeshPredictor(config, device="cuda", seed=SEED)
+    randomize_bn_stats(pred.model, torch.Generator().manual_seed(SEED + 1))
+    bf16 = FaceMeshPredictor({**config, "model": {**config["model"], "dtype": "bfloat16"}}, device="cuda", seed=SEED)
+    bf16.model.load_state_dict(pred.model.state_dict())
+    x = np.random.default_rng(SEED + 2).integers(0, 256, (BENCH_B, IMG, IMG, 3), dtype=np.uint8)
+    x = x.astype(np.float32) * normalize_scale_bias("imagenet")[0] + normalize_scale_bias("imagenet")[1]
+    numbers, runs = {}, []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, live in (("fp32", pred), ("bf16", bf16)):
+            live_ips = {"batch": BENCH_B / median_ms(lambda: live.predict_batch(x), reps=5, warmup=2) * 1e3,
+                        "phase5": phase5_ips[name], "frames": phase5b_ips[name]}
+            numbers[name], launches = _export_one(live, name, live_ips, tmp)
+            runs.append(launches)
+        del pred, bf16
+        torch.cuda.empty_cache()
+        numbers["train_export_aot"] = _train_export_aot(tmp)
+    launches = add_launches(*runs)
+    print(f"[export] this path's launches: {launches}; phase 9 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"export_path": {"launches": launches, **numbers}}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -1205,15 +1461,16 @@ def main() -> int:
     pred, slice_launches = phase4_slice(config)
     frames, frame_launches = phase4b_frames(pred, config)
     render_launches = phase4c_render(flame, frames[0])
-    bf16, _ = phase5_throughput(pred, config)
-    phase5b_frames_throughput(pred, bf16)
+    bf16, phase5_ips = phase5_throughput(pred, config)
+    phase5b_ips = phase5b_frames_throughput(pred, bf16)
     del pred, bf16
     torch.cuda.empty_cache()
     train_launches, synthetic_rates = phase6_train()
     dataset_launches = phase7_dataset(synthetic_rates)
     mobilenet_launches = phase8_mobilenet()
-    # each kernel's launches on the path that serves it, on the dataset path
-    # and on the mobilenet path
+    export_launches = phase9_export(config, phase5_ips, phase5b_ips)
+    # each kernel's launches on the path that serves it, on the dataset path,
+    # on the mobilenet path and on the export path
     path_of = {"blend_shapes_fused": slice_launches, "normalize_images": slice_launches,
                "resample_normalize": frame_launches, "rasterize_buffers": render_launches,
                "blend_shapes_fused_backward": train_launches}
@@ -1221,7 +1478,8 @@ def main() -> int:
     for name in KERNELS:
         entry = {"name": name, **kernels[name], "launches": path_of[name][name],
                  "launches_dataset_path": dataset_launches[name],
-                 "launches_mobilenet_path": mobilenet_launches[name]}
+                 "launches_mobilenet_path": mobilenet_launches[name],
+                 "launches_export_path": export_launches[name]}
         assert entry["launches"] >= 1 and entry["launches_dataset_path"] >= 1, entry
         summary.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")

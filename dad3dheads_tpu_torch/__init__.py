@@ -8,21 +8,23 @@ never ``jax``, ``flax`` or anything of the JAX package; ``constants`` and
 
 Layers (bottom-up):
   core        FLAME decode, rotation, LBS, projection, 68 landmarks, HeadMesh
-  ops         hand-written Hopper kernels (``csrc/*.cu``) and their plain
-              PyTorch versions: fused blendshapes and their backward, uint8
+  ops         hand-written Hopper kernels (``csrc/*.cu``) as ``torch.library``
+              custom operators (``dad3d::``) with their plain PyTorch
+              versions: fused blendshapes and their backward, uint8
               normalize, frame crop/resize/normalize; the heatmap encoder
   models      DAD-3DNet (ResNet-50 + BiFPN + heads) as ``nn.Module``s
   weights     flax variables / msgpack checkpoints <-> torch state dict
   render      rasterizer kernel, lighting, PNCC, UV texture
   api         FaceMeshPredictor (predict_batch, predict_frames,
-              predict_images), demo processors
+              predict_images), the deployment artifact (export_predictor,
+              ExportedFaceMeshPredictor), demo processors
   data        synthetic training batches, bbox helpers, FlameDataset and
               DataLoader (the DAD-3DHeads on-disk format)
   losses      the four training losses over one shared FLAME decode
   metrics     NME, failure rates, soft IoU
   train       config, optimizers, schedulers, state, step, checkpoints, Trainer
   benchmark_harness  the DAD-3DHeads evaluator, ground truth, submissions
-  cli         predict, demo, train, make_dataset, benchmark, acceptance
+  cli         predict, demo, train, make_dataset, benchmark, acceptance, export
 """
 
 __version__ = "0.1.0"

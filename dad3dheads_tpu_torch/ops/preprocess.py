@@ -2,11 +2,12 @@
 host (numpy + cv2) resize/pad, keypoint and readjustment helpers.
 
 Port of ``dad3dheads_tpu/ops/preprocess.py`` and of the normalize kernel of
-``dad3dheads_tpu/ops/preprocess_pallas.py``. On CUDA tensors
-:func:`normalize_images` launches the hand-written kernel of
-``csrc/normalize.cu``; on CPU tensors it runs
-:func:`normalize_images_reference`, the plain PyTorch version. There is no
-other dispatch.
+``dad3dheads_tpu/ops/preprocess_pallas.py``. :func:`normalize_images`
+calls the ``torch.library`` custom operator ``dad3d::normalize_u8``: on CUDA
+tensors it launches the hand-written kernel of ``csrc/normalize.cu``; on CPU
+tensors it runs :func:`normalize_images_reference`, the plain PyTorch
+version; its fake implementation gives a trace the output's shape and type.
+There is no other dispatch.
 """
 
 from __future__ import annotations
@@ -67,21 +68,10 @@ def normalize_images_reference(
     return out.to(out_dtype)
 
 
-def normalize_images(
-    images_u8: torch.Tensor, normalize: str = "imagenet", out_dtype: torch.dtype = torch.float32
-) -> torch.Tensor:
-    """(B, H, W, 3) uint8 -> normalized (B, H, W, 3) ``out_dtype``: float32,
-    or bfloat16 (the fp32 value rounded to nearest even, as ``.to`` rounds),
-    the bf16 trunk's input.
-
-    Any B, H, W. CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which takes a contiguous uint8 NHWC tensor and raises on anything
-    else. The NHWC result viewed as ``permute(0, 3, 1, 2)`` is a channels_last
-    NCHW tensor, the CNN's input layout, with no copy."""
-    if images_u8.device.type == "cpu":
-        return normalize_images_reference(images_u8, normalize, out_dtype)
-    if images_u8.device.type != "cuda":
-        raise ValueError(f"normalize_images runs on cpu or cuda tensors, got {images_u8.device}")
+@torch.library.custom_op("dad3d::normalize_u8", mutates_args=(), device_types="cuda")
+def _normalize_op(images_u8: torch.Tensor, normalize: str, out_dtype: torch.dtype) -> torch.Tensor:
+    """On CUDA tensors the kernel, which takes a contiguous uint8 NHWC tensor
+    and raises on anything else."""
     check_out_dtype(out_dtype)
     if images_u8.dtype != torch.uint8:
         raise ValueError(f"expected uint8 images, got {images_u8.dtype}")
@@ -102,7 +92,35 @@ def normalize_images(
     return out
 
 
-normalize_images.launches = 0  # kernel launches; the CPU path does not count
+@_normalize_op.register_kernel("cpu")
+def _(images_u8, normalize, out_dtype):
+    return normalize_images_reference(images_u8, normalize, out_dtype)
+
+
+@_normalize_op.register_fake
+def _(images_u8, normalize, out_dtype):
+    check_out_dtype(out_dtype)
+    return images_u8.new_empty(images_u8.shape, dtype=out_dtype)
+
+
+def normalize_images(
+    images_u8: torch.Tensor, normalize: str = "imagenet", out_dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> normalized (B, H, W, 3) ``out_dtype``: float32,
+    or bfloat16 (the fp32 value rounded to nearest even, as ``.to`` rounds),
+    the bf16 trunk's input.
+
+    Any B, H, W. CPU tensors take the plain version; CUDA tensors launch the
+    kernel, which takes a contiguous uint8 NHWC tensor and raises on anything
+    else. The NHWC result viewed as ``permute(0, 3, 1, 2)`` is a channels_last
+    NCHW tensor, the CNN's input layout, with no copy."""
+    if images_u8.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"normalize_images runs on cpu or cuda tensors, got {images_u8.device}")
+    check_out_dtype(out_dtype)
+    return _normalize_op(images_u8, normalize, out_dtype)
+
+
+normalize_images.launches = 0  # kernel launches (live or in an exported program); the CPU path does not count
 normalize_images.bf16_launches = 0  # those of them with a bf16 output
 
 

@@ -165,11 +165,11 @@ def preprocess_frames_device(
     if layout not in ("planar", "nhwc") or frames_u8.ndim != expect_ndim:
         raise ValueError(f"layout {layout!r} with frames of shape {tuple(frames_u8.shape)}")
     dev = frames_u8.device
-    # a frame never extends past the buffer, so no crop reads outside it
-    extents = torch.tensor(frames_u8.shape[1:3], dtype=torch.int32, device=dev)
-    if layout == "planar":
-        extents[1] //= 3
-    sizes = torch.minimum(sizes.to(device=dev, dtype=torch.int32), extents)
+    # a frame never extends past the buffer, so no crop reads outside it (the
+    # extents stay symbolic in an exported program)
+    hmax, wmax = frames_u8.shape[1], frames_u8.shape[2] // 3 if layout == "planar" else frames_u8.shape[2]
+    sizes = sizes.to(device=dev, dtype=torch.int32)
+    sizes = torch.stack([torch.clamp(sizes[:, 0], max=hmax), torch.clamp(sizes[:, 1], max=wmax)], dim=-1)
     scalars, scales, paddings = frame_scalars(sizes, bboxes.to(dev), img_size, mode)
     images = resample_normalize(frames_u8.contiguous(), scalars, img_size, normalize, out_dtype)
     return images, scales, paddings

@@ -2,12 +2,15 @@
 frames serving path.
 
 Port of ``resample_normalize_pallas`` (``dad3dheads_tpu/ops/preprocess_pallas.py``)
-and of the dense resample of ``dad3dheads_tpu/ops/preprocess_device.py``. On
-CUDA tensors :func:`resample_normalize` launches the hand-written kernel of
-``csrc/resample.cu``; on CPU tensors it runs
+and of the dense resample of ``dad3dheads_tpu/ops/preprocess_device.py``.
+:func:`resample_normalize` calls the ``torch.library`` custom operator
+``dad3d::resample_normalize_u8``: on CUDA tensors it launches the
+hand-written kernel of ``csrc/resample.cu``; on CPU tensors it runs
 :func:`resample_normalize_reference`, the plain PyTorch version: per-image
-weight matrices from :func:`axis_weights` and two fp32 contractions. There is
-no other dispatch.
+weight matrices from :func:`axis_weights` and two fp32 contractions; its
+fake implementation gives a trace the output's shape and type from the
+frames' batch, ``img_size`` and ``out_dtype`` alone, so that an exported
+program keeps its frame extents symbolic. There is no other dispatch.
 
 The scalar table is (B, 10) int32 [y0, bh, new_h, pad_top, x0, bw, new_w,
 pad_left, use_area, use_exact_area] (see ``preprocess_device.frame_scalars``).
@@ -143,26 +146,14 @@ def resample_normalize_reference(
     return out.to(out_dtype)
 
 
-def resample_normalize(
-    frames: torch.Tensor,
-    scalars: torch.Tensor,
-    img_size: int = 256,
-    normalize: str = "imagenet",
-    out_dtype: torch.dtype = torch.float32,
+@torch.library.custom_op("dad3d::resample_normalize_u8", mutates_args=(), device_types="cuda")
+def _resample_op(
+    frames: torch.Tensor, scalars: torch.Tensor, img_size: int, normalize: str, out_dtype: torch.dtype
 ) -> torch.Tensor:
-    """uint8 frames, channel-planar (B, Hmax, 3*Wmax) or NHWC (B, Hmax, Wmax,
-    3), + (B, 10) int32 scalars -> normalized (B, S, S, 3) ``out_dtype``
-    (float32 or bfloat16), S = ``img_size``.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes contiguous tensors on one device, frames up to 19,370 pixels wide
-    (:func:`resample_plan`), and raises on anything else. The scalars must
-    describe crops inside each frame (``frame_scalars`` clamps the boxes
-    so)."""
-    if frames.device.type == "cpu":
-        return resample_normalize_reference(frames, scalars, img_size, normalize, out_dtype)
-    if frames.device.type != "cuda":
-        raise ValueError(f"resample_normalize runs on cpu or cuda tensors, got {frames.device}")
+    """On CUDA tensors the kernel, which takes contiguous tensors on one
+    device, frames up to 19,370 pixels wide (:func:`resample_plan`, read off
+    the real width here, where it is a number), and raises on anything
+    else."""
     B, Hmax, Wmax, planar = _frame_dims(frames)
     if frames.dtype != torch.uint8:
         raise ValueError(f"expected uint8 frames, got {frames.dtype}")
@@ -189,4 +180,38 @@ def resample_normalize(
     return out
 
 
-resample_normalize.launches = 0  # kernel launches; the CPU path does not count
+@_resample_op.register_kernel("cpu")
+def _(frames, scalars, img_size, normalize, out_dtype):
+    # the kernel's layout, whatever order the contractions leave
+    return resample_normalize_reference(frames, scalars, img_size, normalize, out_dtype).contiguous()
+
+
+@_resample_op.register_fake
+def _(frames, scalars, img_size, normalize, out_dtype):
+    check_out_dtype(out_dtype)
+    return frames.new_empty((frames.shape[0], img_size, img_size, 3), dtype=out_dtype)
+
+
+def resample_normalize(
+    frames: torch.Tensor,
+    scalars: torch.Tensor,
+    img_size: int = 256,
+    normalize: str = "imagenet",
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """uint8 frames, channel-planar (B, Hmax, 3*Wmax) or NHWC (B, Hmax, Wmax,
+    3), + (B, 10) int32 scalars -> normalized (B, S, S, 3) ``out_dtype``
+    (float32 or bfloat16), S = ``img_size``.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes contiguous tensors on one device, frames up to 19,370 pixels wide
+    (:func:`resample_plan`), and raises on anything else. The scalars must
+    describe crops inside each frame (``frame_scalars`` clamps the boxes
+    so)."""
+    if frames.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"resample_normalize runs on cpu or cuda tensors, got {frames.device}")
+    _frame_dims(frames)
+    return _resample_op(frames, scalars, int(img_size), normalize, out_dtype)
+
+
+resample_normalize.launches = 0  # kernel launches (live or in an exported program); the CPU path does not count

@@ -2,10 +2,12 @@
 colour shading and vertex normals. Port of ``dad3dheads_tpu/render/rasterizer.py``
 and of the TPU kernel ``rasterize_buffers_pallas``.
 
-On CUDA tensors :func:`rasterize_buffers` launches the hand-written kernel of
-``csrc/rasterize.cu``; on CPU tensors it runs
-:func:`rasterize_buffers_reference`, the plain PyTorch version. There is no
-other dispatch. Both keep the JAX package's XLA semantics: depth starts at
+:func:`rasterize_buffers` calls the ``torch.library`` custom operator
+``dad3d::rasterize`` (registered when this module is imported): on CUDA
+tensors it launches the hand-written kernel of ``csrc/rasterize.cu``; on CPU
+tensors it runs :func:`rasterize_buffers_reference`, the plain PyTorch
+version; its fake implementation gives a trace the buffers' shapes. There is
+no other dispatch. Both keep the JAX package's XLA semantics: depth starts at
 -1e8 and id at -1, a pixel at integer coordinates (x, y) is inside when its
 three barycentric weights are >= -1e-5, triangles of |doubled area| <= 1e-12
 are rejected, the largest z wins (callers flip z for a camera looking down
@@ -141,23 +143,12 @@ def rasterize_buffers_reference(
     return depth, tri_id, bary
 
 
-def rasterize_buffers(
+@torch.library.custom_op("dad3d::rasterize", mutates_args=(), device_types="cuda")
+def _rasterize_op(
     vertices: torch.Tensor, faces: torch.Tensor, height: int, width: int
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Z-buffer rasterization of one mesh at any (height, width).
-
-    vertices: (V, 3) screen-space fp32, x right, y down, larger z nearer;
-    faces: (T, 3) integer vertex indices. Returns depth (H, W) fp32 (-1e8
-    where empty), tri_id (H, W) int32 (-1 where empty) and bary (H, W, 3)
-    fp32, the winning triangle's barycentric weights.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel, which
-    takes fp32 vertices, sides up to 32,767 and raises on other devices or
-    shapes."""
-    if vertices.device.type == "cpu":
-        return rasterize_buffers_reference(vertices, faces, height, width)
-    if vertices.device.type != "cuda":
-        raise ValueError(f"rasterize_buffers runs on cpu or cuda tensors, got {vertices.device}")
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """On CUDA tensors the kernel, which takes fp32 vertices, sides up to
+    32,767 and raises on other shapes."""
     if vertices.ndim != 2 or vertices.shape[1] != 3 or vertices.dtype != torch.float32:
         raise ValueError(f"vertices: expected (V, 3) float32, got {vertices.dtype} {tuple(vertices.shape)}")
     if faces.ndim != 2 or faces.shape[1] != 3 or faces.device != vertices.device:
@@ -186,7 +177,37 @@ def rasterize_buffers(
     return depth, tri_id, bary
 
 
-rasterize_buffers.launches = 0  # kernel launches; the CPU path does not count
+@_rasterize_op.register_kernel("cpu")
+def _(vertices, faces, height, width):
+    return rasterize_buffers_reference(vertices, faces, height, width)
+
+
+@_rasterize_op.register_fake
+def _(vertices, faces, height, width):
+    return (vertices.new_empty((height, width), dtype=torch.float32),
+            vertices.new_empty((height, width), dtype=torch.int32),
+            vertices.new_empty((height, width, 3), dtype=torch.float32))
+
+
+def rasterize_buffers(
+    vertices: torch.Tensor, faces: torch.Tensor, height: int, width: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Z-buffer rasterization of one mesh at any (height, width).
+
+    vertices: (V, 3) screen-space fp32, x right, y down, larger z nearer;
+    faces: (T, 3) integer vertex indices. Returns depth (H, W) fp32 (-1e8
+    where empty), tri_id (H, W) int32 (-1 where empty) and bary (H, W, 3)
+    fp32, the winning triangle's barycentric weights.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    takes fp32 vertices, sides up to 32,767 and raises on other devices or
+    shapes."""
+    if vertices.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rasterize_buffers runs on cpu or cuda tensors, got {vertices.device}")
+    return _rasterize_op(vertices, faces, int(height), int(width))
+
+
+rasterize_buffers.launches = 0  # kernel launches (one per op call on CUDA tensors); the CPU path does not count
 
 
 def shade(

@@ -2,7 +2,8 @@
 epochs with per-step losses and metrics, sanity validation before training,
 validation every n epochs and optionally every n steps, top-k checkpoints on
 the monitored metric, plateau LR, early stopping, a SIGTERM/SIGINT save of
-``last``, evaluation of the best checkpoint, and the inference export.
+``last``, evaluation of the best checkpoint, the inference export and, with
+``export_aot``, the deployment artifact (``api/export.py``).
 
 The loop is host orchestration; every number is computed on the device by
 the two steps, and metrics are summed there: one host read per epoch. Not
@@ -88,8 +89,6 @@ class Trainer:
         for key in ("auto_lr", "auto_bs"):
             if config.get(key):
                 raise NotImplementedError(f"{key} is not ported yet (ROADMAP queue 1, 'The rest of training')")
-        if config.get("export_aot"):
-            raise NotImplementedError("export_aot (the AOT artifact) is not ported yet (ROADMAP queue 1, 'Export')")
         if config.get("images_log_freq"):
             logger.warning(
                 "images_log_freq=%s: TensorBoard and its image panels are not ported yet (ROADMAP queue "
@@ -324,4 +323,12 @@ class Trainer:
                 )
         export_path = self.ckpt.export_inference(export_state)
         logger.info("exported inference checkpoint to %s", export_path)
+        if self.config.get("export_aot", False):
+            # the deployment artifact beside it, with programs for this device and the CPU
+            from ..api.export import SUFFIX, export_predictor
+
+            aot_path = export_path.rsplit(".", 1)[0] + SUFFIX
+            export_predictor(export_state.model, self.flame, aot_path, img_size=self.img_size,
+                             devices=tuple(dict.fromkeys((self.device.type, "cpu"))))
+            logger.info("exported the deployment artifact to %s", aot_path)
         return state
