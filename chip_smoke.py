@@ -117,11 +117,26 @@ use. Phases, each of which asserts (any failure exits non-zero):
      uint8 rate) and ``predict_frames`` img/s on 256 frames of 1280x720
      (beside phase 5b's); then ``cli.train --synthetic 4 export_aot=true`` at
      full width writes an artifact (card and CPU programs) that loads on the
-     card and serves what its ``.msgpack`` gives the live predictor.
+     card and serves what its ``.msgpack`` gives the live predictor;
+  10. int8 inference (``quant_amax``), resnet50 at 256x256, nothing cut, on
+     phase 4's weights through a checkpoint: the im2col + ``torch._int_mm``
+     route's int32 sums bit for bit a float64 conv at the stem's, a 3x3
+     stride-2, the fusion conv's (K 1,348), the heatmap head's (N 68) and
+     batch-1 p7's (M 4) shapes and at stage 4's depth with every value at
+     +-127; ``calibrate`` on phase 4's 64 images on the card and the CPU, fp32
+     (rtol 1e-5) and bf16; the int8 predictor, fp32 and bf16, through
+     ``predict_batch``, ``__call__`` and ``predict_frames`` (phase 4b's
+     frames) against the CPU at phase 4's tolerances, its landmark
+     displacement and 3DMM drift from the float path, img/s beside phase 5's
+     and 5b's; the fp32 int8 artifact exported on the card and served from a
+     child as in phase 9, ``predict_batch`` and ``predict_frames`` with a
+     gap of 0 to the live int8 predictor. This path's launches of the
+     normalize, resample and blendshape kernels go into the kernels line as
+     ``launches_int8_path`` (each at least one).
 
 Every launch counter is set to 0 just before the path that owns it is driven
-(4, 4b, 4c, 6, 7, each entry point of 8 and each child of 9) and read just
-after. The kernels are ``torch.library`` custom operators; each counts its
+(4, 4b, 4c, 6, 7, each entry point of 8 and 10 and each child of 9) and read
+just after. The kernels are ``torch.library`` custom operators; each counts its
 launches in its CUDA body, so the launches of an exported program count. The line before the last is a JSON object
 with one entry per kernel: its launches on that path, its largest gap to the
 plain version, its time on the card and with the host's dispatch
@@ -1329,21 +1344,26 @@ def _images_reference(live: FaceMeshPredictor, images: np.ndarray, chunk: int) -
     return out
 
 
-def _export_one(live: FaceMeshPredictor, name: str, live_ips: dict, tmp: str) -> tuple[dict, dict]:
-    """Export ``live``'s network on the card, serve the artifact in a child
-    process, hold it against ``live``; returns (this run's numbers, the
-    child's launches)."""
+def _export_one(live: FaceMeshPredictor, name: str, live_ips: dict, tmp: str,
+                exact: bool = False) -> tuple[dict, dict]:
+    """Export ``live``'s network (its int8 mirror where it has ``quant_amax``)
+    on the card, serve the artifact in a child process, hold it against
+    ``live``; returns (this run's numbers, the child's launches). With
+    ``exact`` the batch is normalized on the host for both, as the
+    artifact's ``predict_batch`` does, and the batch and frames outputs must
+    be the live predictor's bit for bit."""
     from dad3dheads_tpu_torch.api.export import export_predictor, read_meta
 
     path = os.path.join(tmp, f"{name}.aot.zip")
     t0 = time.perf_counter()
-    export_predictor(live.model, live.flame, path, img_size=IMG, devices=("cuda",))
+    export_predictor(live.model, live.flame, path, img_size=IMG, devices=("cuda",), quant_amax=live.quant_amax)
     seconds = time.perf_counter() - t0
     meta = read_meta(path)
     mb = os.path.getsize(path) / 1e6
     print(f"[export] resnet50 {name}: exported in {seconds:.1f} s ({', '.join(f'{k} {v:.2f} s' for k, v in meta['export_seconds'].items())}), "
           f"{mb:.1f} MB")
     assert meta["devices"] == ["cuda"] and meta["dtype"] == str(live.model.dtype).replace("torch.", "")
+    assert meta["quantized"] == (live.quant_amax is not None), meta
 
     rng, sizes_hw = frames_4b_sizes(FRAMES_B)
     args = {"path": path, "img": IMG, "out": os.path.join(tmp, f"{name}.npz"), "batch": SLICE_B, "batch_seed": SEED,
@@ -1369,11 +1389,17 @@ def _export_one(live: FaceMeshPredictor, name: str, live_ips: dict, tmp: str) ->
     pick = lambda prefix: {k[len(prefix):]: v for k, v in got.items() if k.startswith(prefix)}
     images = np.random.default_rng(SEED).integers(0, 256, (SLICE_B, IMG, IMG, 3), dtype=np.uint8)
     batch_tol = {"3dmm_params": 1e-3, "3d_vertices": 1e-3, "points": 0.5, "projected_vertices": 0.5}
-    gaps = {"predict_batch": _gaps(pick("batch_"), live.predict_batch(images), batch_tol, f"export {name} batch")}
+    frames_tol = {**batch_tol, "points": 1.0}  # integers after the readjustment
+    if exact:
+        scale, bias = normalize_scale_bias("imagenet")
+        images = images.astype(np.float32) * scale + bias
+    exact_tol = {k: 0.0 for k in batch_tol}
+    gaps = {"predict_batch": _gaps(pick("batch_"), live.predict_batch(images), exact_tol if exact else batch_tol,
+                                   f"export {name} batch")}
     frames, boxes = seeded_frames(rng, sizes_hw), face_boxes(rng, sizes_hw)
     frames_ref = _stack(live.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B))
-    frames_tol = {**batch_tol, "points": 1.0}  # integers after the readjustment
-    gaps["predict_frames"] = _gaps(pick("frames_"), frames_ref, frames_tol, f"export {name} frames")
+    gaps["predict_frames"] = _gaps(pick("frames_"), frames_ref, exact_tol if exact else frames_tol,
+                                   f"export {name} frames")
     imgs = np.random.default_rng(SEED + 90).integers(0, 256, (IMAGES_N, IMG, IMG, 3), dtype=np.uint8)
     gaps["predict_images"] = _gaps(pick("images_"), _images_reference(live, imgs, FRAMES_B), frames_tol,
                                    f"export {name} images")
@@ -1443,6 +1469,179 @@ def phase9_export(config: dict, phase5_ips: dict, phase5b_ips: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# 10: int8 inference
+# --------------------------------------------------------------------------
+
+# (batch, size, cin, cout, kernel, stride) of int8 conv sites at 256x256: the
+# stem (K 147 -> 152), a 3x3 stride-2 conv (stage 2's first), the fusion conv
+# (K 1,348 -> 1,352), the heatmap head (N 68 -> 72), BiFPN's p7 at batch 1
+# (M = 4 rows, padded past 16), and stage 4's 3x3 depth at the int8 extremes
+# (sums of 4,608 products of 127 * 127, past 2**24)
+INT8_SITES = {
+    "stem 7x7/2": (8, 256, 3, 64, 7, 2),
+    "stage2 3x3/2": (8, 64, 128, 128, 3, 2),
+    "fusion 1x1 K=1348": (8, 16, 1348, 1024, 1, 1),
+    "heatmap head N=68": (8, 64, 256, 68, 3, 1),
+    "p7 3x3/2 at B=1 (M=4)": (1, 4, 256, 256, 3, 2),
+    "stage4 3x3 at +-127": (2, 8, 512, 512, 3, 1),
+}
+INT8_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _int8_route() -> None:
+    """The im2col + ``torch._int_mm`` route's int32 sums on the card, bit
+    for bit a float64 convolution of the same int8 values (exact below
+    2**53), at the sites' shapes."""
+    from dad3dheads_tpu_torch.models.quant import conv_int8_accumulator, conv_int8_accumulator_reference, gemm_weight
+
+    rng = np.random.default_rng(SEED + 100)
+    for name, (B, S, C, N, k, stride) in INT8_SITES.items():
+        x = rng.integers(-127, 128, (B, S, S, C), dtype=np.int8)
+        kq = rng.integers(-127, 128, (N, C, k, k), dtype=np.int8)
+        if "127" in name:
+            x[:] = 127
+            kq = np.where(kq >= 0, 127, -127).astype(np.int8)
+            kq[0] = 127  # its interior sums: 4,608 * 127 * 127 = 74,322,432
+        x, kq = torch.from_numpy(x).cuda(), torch.from_numpy(kq).cuda()
+        got = conv_int8_accumulator(x, gemm_weight(kq), k, stride, k // 2)[..., :N]
+        ref = conv_int8_accumulator_reference(x, kq, stride, k // 2)
+        same = got.dtype == torch.int32 and torch.equal(got, ref)
+        print(f"[int8] _int_mm route, {name}: int32 sums {tuple(got.shape)}, largest |sum| {int(ref.abs().max())}, "
+              f"bit for bit the float64 conv {same}")
+        assert same, name
+
+
+def _int8_calibration(card: FaceMeshPredictor, cpu: FaceMeshPredictor, images: np.ndarray) -> dict:
+    """``calibrate`` on phase 4's 64 images (two batches of 32) on the card
+    and on the CPU, fp32 and bf16: the card's tables, and the gaps. fp32 at
+    rtol 1e-5; bf16 rounds every activation to 8 bits before its max, so
+    only its spread is printed (and held under 5%)."""
+    from dad3dheads_tpu_torch.models.quantized import calibrate
+
+    x = normalize_images(torch.from_numpy(images).cuda())
+    tables = {}
+    for name, dtype in INT8_DTYPES.items():
+        t0 = time.perf_counter()
+        on_card = calibrate(card.model, [x[: SLICE_B // 2], x[SLICE_B // 2 :]], dtype=dtype)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        on_cpu = calibrate(cpu.model, [x[: SLICE_B // 2].cpu(), x[SLICE_B // 2 :].cpu()], dtype=dtype)
+        rel = max(abs(on_card[k].item() - on_cpu[k].item()) / on_cpu[k].item() for k in on_cpu)
+        print(f"[int8] calibrate {name}, 64 images: {len(on_card)} sites, card {card_s:.2f} s, "
+              f"largest relative gap to the CPU's amax {rel:.3g}")
+        assert sorted(on_card) == sorted(on_cpu) and len(on_card) == 168, name
+        assert rel <= (1e-5 if dtype == torch.float32 else 5e-2), (name, rel)
+        tables[name] = on_card
+    return tables
+
+
+def _drift(out: dict, ref: dict) -> tuple[float, float, float]:
+    """The int8 path against the float one: landmark displacement (max,
+    mean, px) and the largest 3DMM gap."""
+    disp = np.linalg.norm(np.asarray(out["points"], np.float64) - np.asarray(ref["points"], np.float64), axis=-1)
+    return float(disp.max()), float(disp.mean()), float(np.abs(out["3dmm_params"] - ref["3dmm_params"]).max())
+
+
+def _int8_serve(name: str, config: dict, ck: str, amax: dict, images: np.ndarray, frames: list, boxes: list,
+                rates: dict) -> tuple[FaceMeshPredictor, dict]:
+    """One dtype: the int8 predictor on the card against the CPU through
+    predict_batch, __call__ and predict_frames (phase 4's tolerances), its
+    drift from the float path, this path's launches, and its img/s."""
+    cfg = {**config, "model": {**config["model"], "dtype": "float32" if name == "fp32" else "bfloat16"}}
+    card = FaceMeshPredictor({**cfg, "quant_amax": amax}, checkpoint_path=ck, device="cuda")
+    cpu = FaceMeshPredictor({**cfg, "quant_amax": amax}, checkpoint_path=ck, device="cpu")
+    tag = f"int8 {name}"
+
+    reset_launches()
+    out = card.predict_batch(images)
+    batch_launches = read_launches()
+    print(f"[{tag}] predict_batch B={SLICE_B}: launches {batch_launches}")
+    assert batch_launches["normalize_images"] >= 1 and batch_launches["blend_shapes_fused"] >= 1, batch_launches
+    assert all(np.isfinite(v).all() for v in out.values()) and out["points"].shape == (SLICE_B, 68, 2)
+    ref = cpu.predict_batch(images[:4])
+    for key, atol in {"3dmm_params": 1e-3, "3d_vertices": 1e-3, "points": 0.5, "projected_vertices": 0.5}.items():
+        gap = float(np.abs(out[key][:4] - ref[key]).max())
+        print(f"[{tag}] predict_batch card vs cpu {key}: max abs gap {gap:.3g} (atol {atol})")
+        assert gap <= atol, (tag, key, gap)
+    image = np.random.default_rng(SEED + 110).integers(0, 256, (300, 220, 3), dtype=np.uint8)
+    compare_predictions([card(image)], [cpu(image)], f"{tag} __call__")
+
+    reset_launches()
+    framed = card.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B)
+    frame_launches = read_launches()
+    print(f"[{tag}] predict_frames {len(frames)} frames: launches {frame_launches}")
+    assert frame_launches["resample_normalize"] >= 1 and frame_launches["blend_shapes_fused"] >= 1, frame_launches
+    compare_predictions(framed[:4], cpu.predict_frames(frames[:4], bboxes=boxes[:4], batch_size=4), f"{tag} frames")
+    del cpu
+
+    float_path = FaceMeshPredictor(cfg, checkpoint_path=ck, device="cuda")
+    batch_drift = _drift(out, float_path.predict_batch(images))
+    frames_drift = _drift(_stack(framed), _stack(float_path.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B)))
+    del float_path
+    for what, (dmax, dmean, mm) in (("predict_batch", batch_drift), ("predict_frames", frames_drift)):
+        print(f"[{tag}] {what} against the {name} float path: landmark displacement max {dmax:.3f} px, "
+              f"mean {dmean:.3f} px; 3DMM drift max {mm:.4f}")
+
+    x = np.random.default_rng(SEED + 2).integers(0, 256, (BENCH_B, IMG, IMG, 3), dtype=np.uint8)
+    batch_ips = BENCH_B / median_ms(lambda: card.predict_batch(x), reps=5, warmup=2) * 1e3
+    rng = np.random.default_rng(SEED + 40)
+    n = 4 * FRAMES_B
+    sizes_hw = [(720, 1280)] * n
+    rate_frames = seeded_frames(rng, sizes_hw[:16]) * (n // 16)
+    rate_boxes = face_boxes(rng, sizes_hw)
+    frames_ips = n / median_ms(lambda: card.predict_frames(rate_frames, bboxes=rate_boxes, batch_size=FRAMES_B),
+                               reps=5, warmup=1) * 1e3
+    print(f"[{tag}] {SMI}: predict_batch B={BENCH_B} uint8 {batch_ips:.1f} img/s (phase 5, not int8: "
+          f"{rates['phase5'][name]:.1f}); predict_frames {n} frames 1280x720 {frames_ips:.1f} img/s "
+          f"(phase 5b: {rates['phase5b'][name]:.1f})")
+    numbers = {"predict_batch_ips": batch_ips, "predict_frames_ips": frames_ips,
+               "drift_predict_batch": batch_drift, "drift_predict_frames": frames_drift,
+               "launches": add_launches(batch_launches, frame_launches)}
+    return card, numbers
+
+
+def phase10_int8(config: dict, phase5_ips: dict, phase5b_ips: dict) -> dict:
+    """int8 inference of the resnet50 at 256x256, nothing cut, on phase 4's
+    weights (through a checkpoint): the _int_mm route against float64,
+    calibration on the card and the CPU, the int8 predictor in fp32 and bf16
+    against the CPU, its drift, launches and img/s, and the fp32 int8
+    artifact served from a child process with a gap of 0. Returns the
+    path's launches (predict_batch and predict_frames, both dtypes)."""
+    from dad3dheads_tpu_torch.weights import flax_from_state_dict, save_flax_msgpack
+
+    t0 = time.perf_counter()
+    _int8_route()
+    fp = FaceMeshPredictor(config, device="cuda", seed=SEED)
+    randomize_bn_stats(fp.model, torch.Generator().manual_seed(SEED + 1))
+    images = np.random.default_rng(SEED).integers(0, 256, (SLICE_B, IMG, IMG, 3), dtype=np.uint8)
+    rng, sizes_hw = frames_4b_sizes(FRAMES_B)
+    frames, boxes = seeded_frames(rng, sizes_hw), face_boxes(rng, sizes_hw)
+    numbers, runs = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = save_flax_msgpack(flax_from_state_dict(fp.model.state_dict()), os.path.join(tmp, "phase4.msgpack"))
+        cpu = FaceMeshPredictor(config, checkpoint_path=ck, device="cpu")
+        tables = _int8_calibration(fp, cpu, images)
+        del fp, cpu
+        rates = {"phase5": phase5_ips, "phase5b": phase5b_ips}
+        for name in INT8_DTYPES:
+            live, numbers[name] = _int8_serve(name, config, ck, tables[name], images, frames, boxes, rates)
+            runs.append(numbers[name]["launches"])
+            if name == "fp32":
+                x = np.random.default_rng(SEED + 2).integers(0, 256, (BENCH_B, IMG, IMG, 3), dtype=np.uint8)
+                x = x.astype(np.float32) * normalize_scale_bias("imagenet")[0] + normalize_scale_bias("imagenet")[1]
+                live_ips = {"batch": BENCH_B / median_ms(lambda: live.predict_batch(x), reps=5, warmup=2) * 1e3,
+                            "phase5": numbers[name]["predict_batch_ips"], "frames": numbers[name]["predict_frames_ips"]}
+                numbers["artifact_int8_fp32"], child_launches = _export_one(live, "int8_fp32", live_ips, tmp, exact=True)
+                numbers["artifact_int8_fp32"]["child_launches"] = child_launches
+            del live
+            torch.cuda.empty_cache()
+    launches = add_launches(*runs)
+    print(f"[int8] this path's launches: {launches}; phase 10 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"int8_path": {"launches": launches, **numbers}}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -1469,8 +1668,9 @@ def main() -> int:
     dataset_launches = phase7_dataset(synthetic_rates)
     mobilenet_launches = phase8_mobilenet()
     export_launches = phase9_export(config, phase5_ips, phase5b_ips)
+    int8_launches = phase10_int8(config, phase5_ips, phase5b_ips)
     # each kernel's launches on the path that serves it, on the dataset path,
-    # on the mobilenet path and on the export path
+    # on the mobilenet path, on the export path and on the int8 path
     path_of = {"blend_shapes_fused": slice_launches, "normalize_images": slice_launches,
                "resample_normalize": frame_launches, "rasterize_buffers": render_launches,
                "blend_shapes_fused_backward": train_launches}
@@ -1479,8 +1679,11 @@ def main() -> int:
         entry = {"name": name, **kernels[name], "launches": path_of[name][name],
                  "launches_dataset_path": dataset_launches[name],
                  "launches_mobilenet_path": mobilenet_launches[name],
-                 "launches_export_path": export_launches[name]}
+                 "launches_export_path": export_launches[name],
+                 "launches_int8_path": int8_launches[name]}
         assert entry["launches"] >= 1 and entry["launches_dataset_path"] >= 1, entry
+        if name in ("blend_shapes_fused", "normalize_images", "resample_normalize"):
+            assert entry["launches_int8_path"] >= 1, entry
         summary.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))

@@ -32,9 +32,18 @@ and device (``torch.export.save``). :class:`ExportedFaceMeshPredictor` serves
 ``__call__``, ``predict_images``, ``predict_frames`` and ``predict_batch``
 from it, importing neither the models, the FLAME code nor its assets.
 
-Not ported: int8 artifacts (``quant_amax``, ROADMAP queue 1, "int8 PTQ") and
-the JAX package's per-bucket TPU frames programs, which exist for the TPU's
-static shapes.
+An int8 artifact (``quant_amax``, resnet50 only; ``meta.json`` says
+``"quantized": true``) traces ``pipeline`` and ``frames`` over the int8
+mirror (``models/quantized.py``): they take the prepared int8 kernels as a
+second argument (``weights.pt`` holds them once, as "qparams"), the amax
+table is a constant of the graphs, and ``weights.pt`` keeps only the fp
+weights the mirror reads beside them (the BiFPN fusion weights and the
+regression heads). The fp32 programs, the int8 ones and the decode run with
+TF32 off (``precision.fp32_exact``); the bf16 trunk under the caller's
+settings, as the live bf16 network does.
+
+Not ported: the JAX package's per-bucket TPU frames programs, which exist for
+the TPU's static shapes.
 """
 
 from __future__ import annotations
@@ -55,13 +64,13 @@ from .. import ops  # noqa: F401  registers the dad3d:: operators the programs c
 from ..constants import FLAME_CONSTS
 from ..ops.preprocess import normalize_scale_bias, preprocess_image_np, readjust_3dmm_np, readjust_landmarks_np
 from ..ops.preprocess_device import pack_frames_host
+from ..precision import fp32_exact
 
 FORMAT_VERSION = 1
 SUFFIX = ".aot.zip"
 PROGRAMS = ("pipeline", "decode", "frames")
 DEVICES = ("cuda", "cpu")
 FLAME_FIELDS = ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights")
-INT8_REFUSED = "int8 artifacts (quant_amax) are not ported yet: ROADMAP queue 1, 'int8 PTQ'"
 
 
 def default_devices() -> tuple:
@@ -107,6 +116,27 @@ def _drop_dtype_asserts(program) -> None:
             module.recompile()
 
 
+def _read_by_int8_mirror(key: str) -> bool:
+    """The state-dict entries the int8 mirror reads beside the prepared
+    kernels: the BiFPN fusion weights and the regression heads."""
+    return key.startswith(("shape.", "pose.", "landmarks.")) or key.endswith((".w1", ".w2"))
+
+
+class _Int8Network(torch.nn.Module):
+    """The int8 mirror as a module over ``model``, so that
+    ``functional_call`` can hand it the weights; the amax table is a
+    constant."""
+
+    def __init__(self, model, amax):
+        super().__init__()
+        self.model, self.amax = model, amax
+
+    def forward(self, images, qparams):
+        from ..models.quantized import quantized_forward
+
+        return quantized_forward(self.model, images, self.amax, mode="int8", qparams=qparams)[0]
+
+
 class _Program(torch.nn.Module):
     """A stateless root for ``torch.export``: ``fn`` is a plain attribute, so
     the network it closes over gives the program no parameters; the weights
@@ -135,12 +165,12 @@ def export_predictor(
     or the bf16 trunk with fp32 heads) and ``flame`` (a ``FlameModel``) to
     ``path``, with each program traced for every device in ``devices``
     ("cuda", "cpu"); returns ``path``. The time each trace took is kept in
-    the metadata (``export_seconds``)."""
-    if quant_amax is not None:
-        raise NotImplementedError(INT8_REFUSED)
+    the metadata (``export_seconds``). ``quant_amax`` (a dict or an ``.npz``
+    path) writes the int8 artifact of a resnet50 ``model``."""
     from torch.func import functional_call
 
     from ..core.flame import FlameModel
+    from ..models.quantized import amax_tensors, prepare_int8_params
     from ..ops.preprocess_device import preprocess_frames_device
     from .predictor import decode_3dmm_to_mesh, decode_pipeline_outputs
 
@@ -149,19 +179,35 @@ def export_predictor(
     parents = tuple(flame.parents)
     weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
     flame_tensors = {k: _to_device(getattr(flame, k), "cpu") for k in FLAME_FIELDS}
+    quantized = quant_amax is not None
+    qparams: Dict[str, Any] = {}
+    if quantized:
+        qparams = {k: tuple(t.cpu() for t in v) for k, v in prepare_int8_params(model, img_size=img_size).items()}
+        # the folded leaves stay out of the file (a read of one would put it
+        # in the graph as a constant: tests/test_torch_int8_export.py looks)
+        weights = {k: v for k, v in weights.items() if _read_by_int8_mirror(k)}
 
-    def pipeline(w, images):
-        out = decode_pipeline_outputs(functional_call(model, w, (images,)), stride, img_size)
+    def network(images, w, q=None):
+        """The network's outputs on a normalized batch, from the weights
+        given (and the prepared int8 kernels ``q`` of an int8 artifact)."""
+        if not quantized:
+            return functional_call(model, w, (images,))
+        return functional_call(int8_network, {f"model.{k}": v for k, v in w.items()}, (images, q))
+
+    def pipeline(*args):  # (weights[, qparams], images)
+        images = args[-1]
+        out = decode_pipeline_outputs(network(images, *args[:-1]), stride, img_size)
         return out["landmarks"].reshape(images.shape[0], -1), out["3dmm"]
 
     def decode(f, params_3dmm):
         return decode_3dmm_to_mesh(FlameModel(**f, parents=parents), params_3dmm, constants, img_size)
 
-    def frames(w, frames_u8, sizes, boxes):
+    def frames(*args):  # (weights[, qparams], frames, sizes, boxes)
+        frames_u8, sizes, boxes = args[-3:]
         images, scales, paddings = preprocess_frames_device(
             frames_u8, sizes, boxes, img_size, "imagenet", resize_mode, out_dtype=model.dtype
         )
-        out = decode_pipeline_outputs(functional_call(model, w, (images,)), stride, img_size)
+        out = decode_pipeline_outputs(network(images, *args[:-3]), stride, img_size)
         return out["landmarks"].reshape(frames_u8.shape[0], -1), out["3dmm"], scales, paddings
 
     Dim = torch.export.Dim
@@ -169,6 +215,7 @@ def export_predictor(
     b, bf = Dim("b", min=1, max=65535), Dim("bf", min=1, max=65535)
     fh, fw = Dim("fh", min=2, max=32767), Dim("fw", min=2, max=32767)
     static_w = {k: None for k in weights}
+    static_net = (static_w, {k: (None, None, None) for k in qparams}) if quantized else (static_w,)
     static_f = {k: None for k in flame_tensors}
     n_params = sum(constants.values())
     # example extents that share no value, so that the trace ties no two dims
@@ -185,12 +232,15 @@ def export_predictor(
             u8 = torch.zeros((ex_b, ex_h, ex_w, 3), dtype=torch.uint8, device=dev)
             sizes = torch.tensor([[ex_h, ex_w]] * ex_b, dtype=torch.int32, device=dev)
             boxes = torch.tensor([[0, 0, ex_w, ex_h]] * ex_b, dtype=torch.int32, device=dev)
+            net = (w, {k: tuple(t.to(dev) for t in v) for k, v in qparams.items()}) if quantized else (w,)
+            if quantized:
+                int8_network = _Int8Network(model, amax_tensors(quant_amax, dev))
             specs = {
-                "pipeline": (pipeline, (w, torch.zeros((2, img_size, img_size, 3), device=dev)),
-                             (static_w, {0: b})),
+                "pipeline": (pipeline, (*net, torch.zeros((2, img_size, img_size, 3), device=dev)),
+                             (*static_net, {0: b})),
                 "decode": (decode, (f, torch.zeros((2, n_params), device=dev)), (static_f, {0: b})),
-                "frames": (frames, (w, u8, sizes, boxes),
-                           (static_w, {0: bf, 1: fh, 2: fw}, {0: bf}, {0: bf})),
+                "frames": (frames, (*net, u8, sizes, boxes),
+                           (*static_net, {0: bf, 1: fh, 2: fw}, {0: bf}, {0: bf})),
             }
             for name in PROGRAMS:
                 fn, args, dynamic = specs[name]
@@ -203,12 +253,12 @@ def export_predictor(
                 torch.export.save(program, buf)
                 seconds[f"{name}.{dev}"] = time.perf_counter() - t0
                 files[f"{name}.{dev}.pt2"] = buf.getvalue()
-            del w, f
+            del w, f, net
     finally:
         model.train(was_training)
 
     buf = io.BytesIO()
-    torch.save({"model": weights, "flame": flame_tensors}, buf)
+    torch.save({"model": weights, "qparams": qparams, "flame": flame_tensors}, buf)
     files["weights.pt"] = buf.getvalue()
     meta = {
         "format_version": FORMAT_VERSION,
@@ -220,7 +270,7 @@ def export_predictor(
         "dtype": str(model.dtype).replace("torch.", ""),
         "resize_mode": resize_mode,
         "torch_version": torch.__version__,
-        "quantized": False,
+        "quantized": quantized,
         "export_seconds": seconds,
     }
     files["meta.json"] = json.dumps(meta, indent=1).encode()
@@ -238,16 +288,6 @@ def read_meta(path: str) -> Dict[str, Any]:
     """The artifact's ``meta.json``."""
     with zipfile.ZipFile(path) as z:
         return json.loads(z.read("meta.json"))
-
-
-@contextlib.contextmanager
-def _cudnn_tf32(allow: bool):
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
 
 
 class ExportedFaceMeshPredictor:
@@ -281,31 +321,37 @@ class ExportedFaceMeshPredictor:
             tensors = torch.load(io.BytesIO(z.read("weights.pt")), map_location=self.device, weights_only=True)
         self.meta = meta
         self._weights, self._flame = tensors["model"], tensors["flame"]
+        self._net = (self._weights, tensors["qparams"]) if meta.get("quantized") else (self._weights,)
         self._img_size = int(meta["img_size"])
         self.flame_constants = dict(meta["constants"])
         # the frames program's mode by default, so that both preprocess paths resample alike
         self._resize_mode = resize_mode or meta["resize_mode"]
-        # the fp32 trunk runs cuDNN in full fp32, as the live network sets it
-        self._tf32 = meta["dtype"] != "float32"
+        # the fp32 network and the int8 mirror run with TF32 off, as the live
+        # ones set it; the bf16 trunk under the caller's settings
+        self._exact = meta["dtype"] == "float32" or bool(meta.get("quantized"))
         self._scale, self._bias = normalize_scale_bias("imagenet")
 
     # -- the programs --------------------------------------------------------
     def _tensor(self, x: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _precision(self):
+        return fp32_exact() if self._exact else contextlib.nullcontext()
+
     @torch.inference_mode()
     def _pipeline(self, images: np.ndarray):
-        with _cudnn_tf32(self._tf32):
-            return self._programs["pipeline"](self._weights, self._tensor(images))
+        with self._precision():
+            return self._programs["pipeline"](*self._net, self._tensor(images))
 
     @torch.inference_mode()
     def _decode(self, params_3dmm: torch.Tensor):
-        return self._programs["decode"](self._flame, params_3dmm.to(self.device))
+        with fp32_exact():
+            return self._programs["decode"](self._flame, params_3dmm.to(self.device))
 
     @torch.inference_mode()
     def _frames(self, buf: np.ndarray, sizes: np.ndarray, boxes: np.ndarray):
-        with _cudnn_tf32(self._tf32):
-            return self._programs["frames"](self._weights, self._tensor(buf), self._tensor(sizes), self._tensor(boxes))
+        with self._precision():
+            return self._programs["frames"](*self._net, self._tensor(buf), self._tensor(sizes), self._tensor(boxes))
 
     # -- public API ------------------------------------------------------------
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:

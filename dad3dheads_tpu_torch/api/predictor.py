@@ -22,7 +22,16 @@ of that backbone (another backbone's is refused): the given path, else
 ``~/.dad3d_tpu_checkpoints/dad_3dnet.msgpack`` when it exists, else random
 weights from a seeded ``torch.Generator`` (with a warning, or an error with
 ``require_weights``). Not ported yet, and refused: the ``model_url``
-download, ``mesh=`` sharding and int8 (``quant_amax``).
+download and ``mesh=`` sharding.
+
+int8 inference: a ``quant_amax`` config entry (an amax table from
+``models.quantized.calibrate`` / ``cli.calibrate_int8``, as a dict or an
+``.npz`` path, either package's) runs every entry point through the int8
+mirror (``models/quantized.py``) in the model's dtype; the kernels are
+folded and quantized once, at load. resnet50 only.
+
+The FLAME decode runs with TF32 off (``precision.fp32_exact``), whatever the
+caller's settings.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from ..core.flame import FlameModel, FlameParams, flame_decode
 from ..core.projection import weak_perspective_project
 from ..core.rotation import rot_mat_from_6dof, rotate_vertices
 from ..models import create_model
+from ..models.quantized import amax_tensors, check_backbone, prepare_int8_params, quantized_forward
 from ..ops.preprocess import (
     normalize_images,
     preprocess_image_np,
@@ -54,6 +64,7 @@ from ..ops.preprocess import (
     readjust_landmarks_np,
 )
 from ..ops.preprocess_device import pack_frames_host, preprocess_frames_device
+from ..precision import fp32_exact
 from ..weights import load_checkpoint
 
 logger = logging.getLogger(__name__)
@@ -147,8 +158,9 @@ class FaceMeshPredictor:
             raise NotImplementedError(
                 "mesh= (serving sharded over several devices) is not ported yet: ROADMAP queue 1, 'Parallel'"
             )
-        if self.config.get("quant_amax") is not None:
-            raise NotImplementedError("int8 inference (quant_amax) is not ported yet: ROADMAP queue 1, 'int8 PTQ'")
+        quant_amax = self.config.get("quant_amax")
+        if quant_amax is not None:  # before loading anything
+            check_backbone(self.config["model"].get("backbone", "resnet50"))
         self.device = torch.device(device)
         self._img_size = int(self.config["img_size"])
         self._stride = int(self.config.get("stride", 4))
@@ -166,6 +178,12 @@ class FaceMeshPredictor:
         else:
             logger.warning("no checkpoint found: using random weights (seed %d)", seed)
         self.model = self.model.to(self.device).eval()
+        self.quant_amax: Optional[Dict[str, torch.Tensor]] = None
+        self.quant_qparams = None
+        if quant_amax is not None:
+            self.quant_amax = amax_tensors(quant_amax, self.device)
+            # fold BN and quantize the kernels once; each call reads only these
+            self.quant_qparams = prepare_int8_params(self.model, img_size=self._img_size)
 
     # -- weights -----------------------------------------------------------
     def _checkpoint(self, checkpoint_path: Optional[str], require_weights: bool) -> Optional[str]:
@@ -198,6 +216,13 @@ class FaceMeshPredictor:
         return None
 
     # -- the device pipeline -----------------------------------------------
+    def _network(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The network's outputs on a normalized NHWC batch: the int8 mirror
+        with ``quant_amax``, else the model."""
+        if self.quant_amax is None:
+            return self.model(x)
+        return quantized_forward(self.model, x, self.quant_amax, mode="int8", qparams=self.quant_qparams)[0]
+
     @torch.inference_mode()
     def _run(self, x: torch.Tensor):
         """Normalized or uint8 NHWC batch on the device -> decoded outputs. A
@@ -207,7 +232,7 @@ class FaceMeshPredictor:
             x = normalize_images(x, out_dtype=self.model.dtype)
         elif x.dtype != self.model.dtype:
             x = x.float()
-        return decode_pipeline_outputs(self.model(x), self._stride, self._img_size)
+        return decode_pipeline_outputs(self._network(x), self._stride, self._img_size)
 
     @torch.inference_mode()
     def _run_packed(self, x: torch.Tensor) -> torch.Tensor:
@@ -226,7 +251,7 @@ class FaceMeshPredictor:
             frames, sizes, bboxes, self._img_size, "imagenet", self._resize_mode, layout=layout,
             out_dtype=self.model.dtype,
         )
-        dev = decode_pipeline_outputs(self.model(images), self._stride, self._img_size)
+        dev = decode_pipeline_outputs(self._network(images), self._stride, self._img_size)
         B = frames.shape[0]
         return torch.cat(
             [scales, paddings.float(), dev["landmarks"].reshape(B, -1), dev["3dmm"].float()], dim=1
@@ -234,7 +259,8 @@ class FaceMeshPredictor:
 
     @torch.inference_mode()
     def _decode_3dmm(self, params_3dmm: torch.Tensor):
-        return decode_3dmm_to_mesh(self.flame, params_3dmm, self.flame_constants, self._img_size)
+        with fp32_exact():
+            return decode_3dmm_to_mesh(self.flame, params_3dmm, self.flame_constants, self._img_size)
 
     def _mesh_results(self, pts, adj: np.ndarray) -> list:
         """Per-image result dicts for readjusted points and 3DMM rows, with

@@ -9,7 +9,12 @@ The port's copy of ``tools/acceptance_run.py``:
      through host crops (``predictor(crop)``), and with
      ``--device-preprocess`` also through ``predict_frames`` (crop, resize
      and normalize on the device); then the host-crop leg with a bf16 trunk,
-     and the largest gap of its 3DMM to the fp32 trunk's.
+     and the largest gap of its 3DMM to the fp32 trunk's;
+  5. with ``--int8``, the int8 leg of ``tools/acceptance_extra_legs.py``:
+     ``cli.calibrate_int8`` on the first ``--calib-num`` val images (fp32,
+     the dtype the legs serve), then the val set scored through
+     ``quant_amax`` (host crops, and with ``--device-preprocess`` also
+     ``predict_frames``), and the largest gap of its 3DMM to the fp32 leg's.
 
 Like the JAX tool, it renders train and val from the same seed, so the val
 images are the first train images; it also renders as many held-out images
@@ -19,7 +24,7 @@ leg's metrics (also written to ``<work>/acceptance.json``).
 
   python -m dad3dheads_tpu_torch.cli.acceptance --work /tmp/acc \\
       --train-num 512 --val-num 32 --epochs 40 --img 128 --batch 32 \\
-      --device-preprocess [--device cpu]
+      --device-preprocess [--int8 --calib-num 32] [--device cpu]
 """
 
 from __future__ import annotations
@@ -42,11 +47,12 @@ def sh(*cmd: str) -> None:
     subprocess.run(cmd, check=True)
 
 
-def predictor_config(img: int, dtype: str = "float32") -> Dict[str, Any]:
+def predictor_config(img: int, dtype: str = "float32", quant_amax: Optional[str] = None) -> Dict[str, Any]:
     return {
         "img_size": img,
         "stride": 4,
         "model": {"backbone": "resnet50", "num_classes": 68, "num_filters": 256, "limit_value": 3, "dtype": dtype},
+        "quant_amax": quant_amax,
     }
 
 
@@ -71,10 +77,12 @@ def evaluate_checkpoint(
     device_preprocess: bool = False,
     dtype: str = "float32",
     subset: str = "val",
+    quant_amax: Optional[str] = None,
 ) -> Dict[str, Any]:
-    """Predict ``subset`` with the checkpoint (random weights when None),
-    write a submission and score it; returns the overall metrics, plus the
-    network-frame 3DMM of the host crops under "_3dmm"."""
+    """Predict ``subset`` with the checkpoint (random weights when None;
+    int8 with an amax file), write a submission and score it; returns the
+    overall metrics, plus the network-frame 3DMM of the host crops under
+    "_3dmm"."""
     from ..api.predictor import FaceMeshPredictor
     from ..benchmark_harness import DADEvaluator
     from ..benchmark_harness.submission import predictions_to_submission_entry
@@ -82,7 +90,7 @@ def evaluate_checkpoint(
     from ..data.io import read_as_rgb
     from ..ops.preprocess import preprocess_image_np
 
-    predictor = FaceMeshPredictor(predictor_config(img, dtype), checkpoint_path=ckpt_path, device=device)
+    predictor = FaceMeshPredictor(predictor_config(img, dtype, quant_amax), checkpoint_path=ckpt_path, device=device)
     emb = LandmarkEmbedding.load()
     base = os.path.join(work, "DAD-3DHeadsDataset", subset)
     with open(os.path.join(base, f"{subset}.json")) as f:
@@ -133,6 +141,8 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--skip-train", action="store_true")
     ap.add_argument("--device-preprocess", action="store_true",
                     help="also serve the val set through predict_frames (crop/resize/normalize on the device)")
+    ap.add_argument("--int8", action="store_true", help="also calibrate and score the int8 path (quant_amax)")
+    ap.add_argument("--calib-num", type=int, default=32, help="val images the int8 calibration reads")
     args = ap.parse_args(argv)
 
     from ..benchmark_harness import generate_gt
@@ -185,12 +195,30 @@ def main(argv=None) -> Dict[str, Any]:
                                                  gt_paths["val"], "trained_bf16", dev, dtype="bfloat16")
     legs["trained_heldout_host_preprocess"] = stage("score_heldout", evaluate_checkpoint, work, args.img, ckpt,
                                                     gt_paths["heldout"], "trained_heldout", dev, subset="heldout")
+    if args.int8:
+        amax = os.path.join(work, "amax.npz")
+        from .calibrate_int8 import main as calibrate_int8
+
+        stage("calibrate_int8", calibrate_int8, ["--checkpoint", ckpt, "--out", amax, "--images",
+                                                 os.path.join(base_v, "images"), "--num", str(args.calib_num),
+                                                 "--batch", "16", "--img-size", str(args.img), "--dtype", "fp32",
+                                                 "--device", dev])
+        legs["trained_int8_host_preprocess"] = stage("score_int8", evaluate_checkpoint, work, args.img, ckpt,
+                                                     gt_paths["val"], "trained_int8", dev, quant_amax=amax)
+        if args.device_preprocess:
+            legs["trained_int8_device_preprocess"] = stage(
+                "score_int8_device", evaluate_checkpoint, work, args.img, ckpt, gt_paths["val"],
+                "trained_int8_device", dev, device_preprocess=True, quant_amax=amax)
 
     result: Dict[str, Any] = {k: {m: v for m, v in leg.items() if not m.startswith("_")} for k, leg in legs.items()}
     gap = np.abs(legs["trained_bf16_host_preprocess"]["_3dmm"] - legs["trained_host_preprocess"]["_3dmm"])
     result["bf16_3dmm_max_abs_gap"] = float(gap.max())
+    if args.int8:
+        gap = np.abs(legs["trained_int8_host_preprocess"]["_3dmm"] - legs["trained_host_preprocess"]["_3dmm"])
+        result["int8_3dmm_max_abs_gap"] = float(gap.max())
     result["seconds"] = seconds
-    result["settings"] = {k: getattr(args, k) for k in ("train_num", "val_num", "img", "batch", "epochs", "device")}
+    result["settings"] = {k: getattr(args, k) for k in ("train_num", "val_num", "img", "batch", "epochs", "device",
+                                                        "int8", "calib_num")}
     with open(os.path.join(work, "acceptance.json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result), flush=True)

@@ -3,14 +3,15 @@ of ``tools/export_model.py``:
 
   python -m dad3dheads_tpu_torch.cli.export --checkpoint exp/checkpoints/dad_3dnet.msgpack \\
       --out dad_3dnet.aot.zip [--img-size 256] [--backbone resnet50] [--num-filters 256] \\
-      [--dtype fp32] [--device cuda] [--devices cuda cpu]
+      [--dtype fp32] [--device cuda] [--devices cuda cpu] [--quant-amax amax.npz]
 
 ``--device`` is where the network is loaded and traced (the card by
 default); ``--devices`` are the devices the artifact carries programs for
 (the card and the CPU on a machine with a card, the CPU alone without).
 Serve the file with ``dad3dheads_tpu_torch.api.ExportedFaceMeshPredictor(path,
-device=...)``: no model code or FLAME assets are needed there. int8
-(``--quant-amax``) is refused until ROADMAP's "int8 PTQ" lands.
+device=...)``: no model code or FLAME assets are needed there.
+``--quant-amax`` (an amax table from ``cli.calibrate_int8``) writes the int8
+artifact of a resnet50 checkpoint.
 """
 
 from __future__ import annotations
@@ -34,13 +35,10 @@ def main(argv=None) -> str:
     ap.add_argument("--device", default="cuda", help="where to load and trace: cuda (default) or cpu")
     ap.add_argument("--devices", nargs="+", default=None,
                     help="devices the artifact carries programs for (default: cuda cpu with a card, else cpu)")
-    ap.add_argument("--quant-amax", default=None, help="int8 export: not ported yet (ROADMAP queue 1, 'int8 PTQ')")
+    ap.add_argument("--quant-amax", default=None, help="amax .npz: export the int8 artifact (resnet50)")
     args = ap.parse_args(argv)
 
-    from ..api.export import INT8_REFUSED, default_devices, export_predictor
-
-    if args.quant_amax:
-        raise NotImplementedError(INT8_REFUSED)
+    from ..api.export import default_devices, export_predictor
     from ..api.predictor import FaceMeshPredictor
 
     predictor = FaceMeshPredictor(
@@ -49,6 +47,7 @@ def main(argv=None) -> str:
             "stride": args.stride,
             "model": {"backbone": args.backbone, "num_filters": args.num_filters, "num_classes": 68,
                       "dtype": args.dtype},
+            "quant_amax": args.quant_amax,
         },
         checkpoint_path=args.checkpoint,
         flame_path=args.flame_path,
@@ -59,6 +58,7 @@ def main(argv=None) -> str:
     path = export_predictor(
         predictor.model, predictor.flame, args.out, img_size=args.img_size, stride=args.stride,
         constants=predictor.flame_constants, devices=devices, resize_mode=args.resize_mode,
+        quant_amax=predictor.quant_amax,
     )
     print(f"exported {path} ({os.path.getsize(path) / 1e6:.1f} MB, devices={list(devices)})")
     return path

@@ -12,12 +12,13 @@ resize on host threads) and the results land as
   python -m dad3dheads_tpu_torch.cli.predict --input imgs/ --output out/ \\
       [--format jsonl|obj|json] [--batch 32] [--workers 8] [--device cuda] \\
       [--checkpoint ck.msgpack] [--resize-mode ...] [--bboxes boxes.json] \\
-      [--device-preprocess]
+      [--device-preprocess] [--quant-amax amax.npz]
 
 With ``--bboxes`` (a json mapping image filename -> [x0, y0, x1, y1]) or
 ``--device-preprocess``, frames go through ``FaceMeshPredictor.predict_frames``:
 crop, resize and normalize run on the device, and "points" are reported in
-full-frame coordinates.
+full-frame coordinates. ``--quant-amax`` (an amax table from
+``cli.calibrate_int8``) serves the resnet50 through the int8 mirror.
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def main(argv=None) -> str:
         help="run with randomly initialized weights when no checkpoint is "
         "found (outputs will be garbage; for smoke testing only)",
     )
-    ap.add_argument("--quant-amax", default=None, help="int8 amax npz (not ported yet: raises)")
+    ap.add_argument("--quant-amax", default=None, help="amax .npz: int8 inference (cli.calibrate_int8 writes one)")
     ap.add_argument("--resize-mode", default="longest_max_size", choices=("longest_max_size", "resize"))
     ap.add_argument("--img-size", type=int, default=256)
     ap.add_argument("--dtype", default="bf16", help="the network trunk's dtype: bf16 or float32")

@@ -7,7 +7,8 @@ NCHW is a channels_last tensor, so cuDNN runs channels_last throughout.
 
 dtype "bfloat16" runs the trunk (encoder, BiFPN, heatmap conv, fusion) under
 ``torch.autocast(bfloat16)``; the three regression heads always run fp32.
-dtype "float32" runs the whole forward in fp32 with cuDNN's TF32 off.
+dtype "float32" runs the whole forward in fp32 with TF32 off
+(``precision.fp32_exact``), whatever the caller's settings.
 Attribute names follow the reference's state-dict keys (``encoder.model.*``,
 ``bifpn.*``, ``head.heatmap``, ``fusion_layer.conv1x1``,
 ``{shape,pose,landmarks}.logit_image.{0,3}``).
@@ -15,7 +16,6 @@ Attribute names follow the reference's state-dict keys (``encoder.model.*``,
 
 from __future__ import annotations
 
-import contextlib
 from typing import Any, Dict, Optional
 
 import torch
@@ -28,6 +28,7 @@ from ..constants import (
     OUTPUT_LANDMARKS_HEATMAP,
 )
 
+from ..precision import fp32_exact
 from .bifpn import BiFPN, ChannelScale
 from .mobilenet import MobileNetStages
 from .resnet import ResNet50Stages
@@ -74,17 +75,6 @@ class FusionLayer(nn.Module):
         return self.conv1x1(fmap) * x
 
 
-@contextlib.contextmanager
-def cudnn_tf32_off():
-    """cuDNN's fp32 convolutions in full fp32 (its TF32 default off) inside."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = prev
-
-
 class DAD3DNet(nn.Module):
     """The image -> (heatmap, 3DMM, landmarks) network on the ``backbone``
     encoder (``ENCODERS``: resnet50 or mobilenet_w1); the BiFPN, fusion and
@@ -122,7 +112,7 @@ class DAD3DNet(nn.Module):
     def _trunk_context(self, device_type: str):
         if self.dtype == torch.bfloat16:
             return torch.autocast(device_type, dtype=torch.bfloat16)
-        return cudnn_tf32_off()
+        return fp32_exact()
 
     def neck(self, feats):
         """BiFPN + heatmap head + fusion on the encoder taps (NCHW)."""
@@ -153,8 +143,8 @@ class DAD3DNet(nn.Module):
             feats = self.encoder.stages_backbone(x)
             heatmap, fmap = self.neck(feats)
             fmap = self.encoder.final_stage(fmap)
-        with torch.autocast(x.device.type, enabled=False):
-            return self.heads(heatmap, fmap)
+            with torch.autocast(x.device.type, enabled=False):
+                return self.heads(heatmap, fmap)
 
 
 def create_model(config: Optional[Dict[str, Any]] = None, generator: Optional[torch.Generator] = None) -> DAD3DNet:

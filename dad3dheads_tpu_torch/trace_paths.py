@@ -20,23 +20,29 @@ each convolution operator ran (``aten::cudnn_convolution`` against
 ``aten::_conv_depthwise2d``, ATen's own NCHW depthwise kernel, which a
 channels_last input reaches through layout copies); and, for mobilenet_w1,
 its 13 depthwise convolutions alone at B = 256, forward and backward, to
-name their kernels. With ``--trace-dir`` it also writes each chrome trace
-there.
+name their kernels. Then the int8 ``predict_batch`` (resnet50, ``quant_amax``
+calibrated on 64 of the images, B = 256, fp32 and bf16), with the int8
+mirror's stages labelled for the profiler (``int8_stages_ms``: the im2col
+copies, ``torch._int_mm``, the epilogue, the residual joins, the
+(re)quantization and the dequantization of the dense taps). With
+``--trace-dir`` it also writes each chrome trace there.
 Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, record_function
 
 from .api import FaceMeshPredictor
 from .models import randomize_bn_stats
@@ -61,6 +67,7 @@ BUCKETS = (
     ("max pool", ("max_pool",)),
 )
 OTHER = "elementwise and other"
+INT8_LABEL = "int8: "  # the prefix of the int8 mirror's stage labels
 FIRST_EVENTS = 12  # device events listed in order from the start of each traced call
 TOP_KERNELS = 12  # kernels listed by their device time in each traced call
 
@@ -120,7 +127,9 @@ def trace(fn, label: str, trace_dir: str | None) -> dict:
             "idle_share": 1.0 - busy_ms / wall_ms, "buckets_sum_ms": sum(buckets.values()),
             "buckets_ms": dict(sorted(buckets.items(), key=lambda kv: -kv[1])), "first_events": first,
             "top_kernels_ms": [(name[:160], ms) for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]],
-            "conv_ops": conv_ops}
+            "conv_ops": conv_ops,
+            "int8_stages_ms": {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
+                               if e.key.startswith(INT8_LABEL)}}
 
 
 def trace_train_step(backbone: str, dtype: str, seed: int, trace_dir: str | None) -> dict:
@@ -145,7 +154,7 @@ def trace_depthwise(dtype: str, trace_dir: str | None) -> dict:
     in the trunk's mode: fp32 with cuDNN's TF32 off, or bf16 under
     autocast. Names the kernels that run them, and the layout transposes."""
     from .models import MobileNetStages
-    from .models.dad3dnet import cudnn_tf32_off
+    from .precision import fp32_exact
 
     encoder = MobileNetStages().cuda()
     convs = [m.dw_conv.conv for m in encoder.modules() if hasattr(m, "dw_conv")]
@@ -156,7 +165,7 @@ def trace_depthwise(dtype: str, trace_dir: str | None) -> dict:
         encoder(x)
     for h in hooks:
         h.remove()
-    context = (lambda: torch.autocast("cuda", dtype=torch.bfloat16)) if dtype == "bfloat16" else cudnn_tf32_off
+    context = (lambda: torch.autocast("cuda", dtype=torch.bfloat16)) if dtype == "bfloat16" else fp32_exact
     inputs = [(mod, t.to(torch.bfloat16) if dtype == "bfloat16" else t) for mod, t in inputs]
 
     def run():
@@ -169,6 +178,67 @@ def trace_depthwise(dtype: str, trace_dir: str | None) -> dict:
     result = trace(run, f"mobilenet_w1_depthwise_convs_B256_{dtype}", trace_dir)
     result["shapes"] = [tuple(t.shape) for _, t in inputs]
     return result
+
+
+def _int8_stages():
+    """(module, function, label) of the int8 mirror's leaf stages, none of
+    which calls another."""
+    from .models import quant, quantized
+
+    return (
+        (quant, "_im2col", INT8_LABEL + "im2col (padding, window copy)"),
+        (torch, "_int_mm", INT8_LABEL + "torch._int_mm (int8 x int8 -> int32)"),
+        (quant, "_epilogue", INT8_LABEL + "epilogue (dequantize the sums, bias, ReLU)"),
+        (quant, "_residual", INT8_LABEL + "residual joins (dequantize, add, ReLU)"),
+        (quant, "quantize", INT8_LABEL + "(re)quantize (divide, round, clamp, cast)"),
+        (quantized, "quantize", INT8_LABEL + "(re)quantize (divide, round, clamp, cast)"),
+        (quantized, "dequantize", INT8_LABEL + "dequantize (dense taps, upsample inputs)"),
+    )
+
+
+def _labelled(fn, label: str):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
+def trace_int8(images: np.ndarray, seed: int, trace_dir: str | None) -> list:
+    """int8 ``predict_batch`` of the resnet50 at B = 256, fp32 and bf16: the
+    weights of the other traces (seeded, BN statistics randomized) through a
+    checkpoint, ``quant_amax`` calibrated in the model's dtype on the first
+    64 images; the mirror's stages labelled while it is traced."""
+    from .models import create_model
+    from .models.quantized import calibrate
+    from .ops.preprocess import normalize_images
+    from .weights import flax_from_state_dict, save_flax_msgpack
+
+    model = create_model({}, torch.Generator().manual_seed(seed))
+    randomize_bn_stats(model, torch.Generator().manual_seed(seed + 1))
+    results = []
+    stages = _int8_stages()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = save_flax_msgpack(flax_from_state_dict(model.state_dict()), os.path.join(tmp, "ck.msgpack"))
+        for dtype in ("float32", "bfloat16"):
+            config = {"img_size": 256, "model": {"dtype": dtype}}
+            fp = FaceMeshPredictor(config, checkpoint_path=ck, device="cuda")
+            x = normalize_images(torch.from_numpy(images[:64]).cuda())
+            amax = calibrate(fp.model, [x[:32], x[32:]])
+            del fp
+            pred = FaceMeshPredictor({**config, "quant_amax": amax}, checkpoint_path=ck, device="cuda")
+            for mod, name, label in stages:
+                setattr(mod, name, _labelled(getattr(mod, name), label))
+            try:
+                results.append(trace(lambda: pred.predict_batch(images), f"resnet50_int8_predict_batch_B256_{dtype}",
+                                     trace_dir))
+            finally:
+                for mod, name, _ in stages:
+                    setattr(mod, name, getattr(mod, name).__wrapped__)
+            del pred
+            torch.cuda.empty_cache()
+    return results
 
 
 def main(argv=None) -> int:
@@ -203,6 +273,8 @@ def main(argv=None) -> int:
             for r in results:
                 print(json.dumps(r), flush=True)
             torch.cuda.empty_cache()
+    for r in trace_int8(images, args.seed, args.trace_dir):
+        print(json.dumps(r), flush=True)
     return 0
 
 

@@ -4,15 +4,15 @@ panel -> (train only) backward, global-norm clipping and an optimizer update
 scaled by the linear warmup and the host's LR multiplier.
 
 The FLAME decode runs in fp32 and its blendshape product differentiates
-through the hand-written backward kernel on the card. With an fp32 model the
-whole step, backward included, runs with cuDNN's TF32 off; a bf16 model runs
-its trunk under autocast and its heads and the geometry in fp32, as in
-inference.
+through the hand-written backward kernel on the card. The whole step,
+backward included, runs with TF32 off (``precision.fp32_exact``), whatever
+the caller's settings: an fp32 model in full fp32, a bf16 model with its
+trunk under autocast and its heads, the geometry and the losses in fp32, as
+in inference.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
@@ -35,9 +35,9 @@ from ..core.flame import FlameModel
 from ..core.projection import heatmap_to_keypoints, normalize_to_cube
 from ..losses import LossModule, SharedFlameDecode, shared_flame_decode_raw
 from ..metrics import compute_step_metrics
-from ..models.dad3dnet import cudnn_tf32_off
 from ..ops.heatmap import encode_heatmap
 from ..ops.preprocess import normalize_images
+from ..precision import fp32_exact
 from .schedulers import warmup_factor
 from .state import TrainState
 
@@ -81,12 +81,6 @@ class _StepCommon:
         self.heatmap_stride = heatmap_stride
         self.heatmap_radius = heatmap_radius
         self._face_idx = torch.as_tensor(assets.get_flame_indices("face"), dtype=torch.int64)
-
-    def precision(self, state: TrainState, device: torch.device):
-        """fp32 models: cuDNN in full fp32 for forward and backward."""
-        if device.type == "cuda" and state.model.dtype == torch.float32:
-            return cudnn_tf32_off()
-        return contextlib.nullcontext()
 
     def forward_and_loss(self, state: TrainState, flame: FlameModel, batch, train: bool):
         targets = _prepare_targets(batch, self.img_size, self.heatmap_stride, self.heatmap_radius)
@@ -139,9 +133,8 @@ def build_train_step(
     common = _StepCommon(loss_module, img_size, heatmap_stride, heatmap_radius)
 
     def train_step(state: TrainState, flame: FlameModel, batch: Dict[str, torch.Tensor], lr_mult: float = 1.0):
-        device = batch[INPUT_IMAGE_KEY].device
         state.optimizer.zero_grad()
-        with common.precision(state, device):
+        with fp32_exact():
             total, outputs, shared, loss_dict, targets = common.forward_and_loss(state, flame, batch, True)
             total.backward()
         grad_norm = state.optimizer.step(warmup_factor(state.step, warmup_steps) * float(lr_mult))
@@ -167,7 +160,7 @@ def build_eval_step(
 
     @torch.no_grad()
     def eval_step(state: TrainState, flame: FlameModel, batch: Dict[str, torch.Tensor]):
-        with common.precision(state, batch[INPUT_IMAGE_KEY].device):
+        with fp32_exact():
             total, outputs, shared, loss_dict, targets = common.forward_and_loss(state, flame, batch, False)
         logs = {"loss": total, **loss_dict}
         logs.update({f"metrics/{k}": v for k, v in common.metrics(outputs, targets, shared).items()})

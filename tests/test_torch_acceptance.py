@@ -2,8 +2,8 @@
 at a small size (4 train and 2 val images at 64x64, batch 2, one epoch):
 render, score the untrained network, train through the data pipeline,
 score the trained checkpoint through host crops, through ``predict_frames``,
-with a bf16 trunk and on held-out images, in a fresh interpreter that never
-imports JAX."""
+with a bf16 trunk, on held-out images, and through the int8 path calibrated
+on the val images, in a fresh interpreter that never imports JAX."""
 
 import json
 import os
@@ -20,7 +20,7 @@ METRICS = ("pose_error", "nme_reprojection", "z5_accuracy", "chamfer")
 def test_acceptance_cli_on_the_cpu(tmp_path):
     work = str(tmp_path / "acc")
     args = ["--work", work, "--train-num", "4", "--val-num", "2", "--epochs", "1", "--img", "64", "--batch", "2",
-            "--device", "cpu", "--device-preprocess"]
+            "--device", "cpu", "--device-preprocess", "--int8", "--calib-num", "2"]
     code = textwrap.dedent(
         f"""
         import sys
@@ -41,13 +41,16 @@ def test_acceptance_cli_on_the_cpu(tmp_path):
     result = json.loads(lines[-2])
     assert result == json.load(open(os.path.join(work, "acceptance.json")))
     legs = ("untrained", "trained_host_preprocess", "trained_device_preprocess", "trained_bf16_host_preprocess",
-            "trained_heldout_host_preprocess")
+            "trained_heldout_host_preprocess", "trained_int8_host_preprocess", "trained_int8_device_preprocess")
     for leg in legs:
         assert set(result[leg]) == set(METRICS), leg
         assert all(np.isfinite(v) for v in result[leg].values()), leg
-    assert np.isfinite(result["bf16_3dmm_max_abs_gap"])
-    for tag in ("untrained", "trained", "trained_device", "trained_bf16", "trained_heldout"):
+    assert np.isfinite(result["bf16_3dmm_max_abs_gap"]) and np.isfinite(result["int8_3dmm_max_abs_gap"])
+    for tag in ("untrained", "trained", "trained_device", "trained_bf16", "trained_heldout", "trained_int8",
+                "trained_int8_device"):
         assert any(line.startswith(f"[{tag}] pose_error=") for line in lines), tag
     assert set(result["seconds"]) == {"render_train", "render_val", "render_heldout", "score_untrained", "train",
-                                      "score_host", "score_device", "score_bf16", "score_heldout"}
+                                      "score_host", "score_device", "score_bf16", "score_heldout", "calibrate_int8",
+                                      "score_int8", "score_int8_device"}
+    assert os.path.isfile(os.path.join(work, "amax.npz"))
     assert os.path.isfile(os.path.join(work, "exp", "checkpoints", "dad_3dnet.msgpack"))

@@ -245,14 +245,20 @@ def test_refuses_a_newer_format(artifact, tmp_path):
         ExportedFaceMeshPredictor(str(newer), device="cpu")
 
 
-def test_refuses_int8(checkpoint, tmp_path):
+def test_refuses_int8(checkpoint, live, tmp_path):
+    """int8 artifacts cover the resnet50 flagship only: a mobilenet_w1 one is
+    refused, through the API and the CLI (tests/test_torch_int8_serve.py
+    exports the resnet50's)."""
     from dad3dheads_tpu_torch.cli.export import main
 
-    with pytest.raises(NotImplementedError, match="int8 PTQ"):
-        export_predictor(None, None, str(tmp_path / "q.aot.zip"), quant_amax={"stem": 1.0})
-    with pytest.raises(NotImplementedError, match="int8 PTQ"):
+    with pytest.raises(ValueError, match="resnet50"):
+        export_predictor(live.model, live.flame, str(tmp_path / "q.aot.zip"), img_size=IMG, devices=("cpu",),
+                         quant_amax={"fusion/in": 1.0})
+    with pytest.raises(ValueError, match="resnet50"):
         main(["--checkpoint", checkpoint, "--out", str(tmp_path / "q.aot.zip"), "--device", "cpu",
+              "--backbone", "mobilenet_w1", "--num-filters", "64", "--img-size", str(IMG),
               "--quant-amax", "amax.npz"])
+    assert not os.path.exists(tmp_path / "q.aot.zip")
 
 
 # --------------------------------------------------------------------------

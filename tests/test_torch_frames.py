@@ -397,8 +397,9 @@ def test_predictor_refuses_what_is_not_ported(tmp_path):
 
     with pytest.raises(FileNotFoundError, match="checkpoint not found"):
         FaceMeshPredictor({"img_size": S}, checkpoint_path=str(tmp_path / "missing.msgpack"), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        FaceMeshPredictor({"img_size": S, "quant_amax": "amax.npz"}, device="cpu")
+    with pytest.raises(ValueError, match="resnet50"):  # int8 covers the flagship only
+        FaceMeshPredictor({"img_size": S, "model": {"backbone": "mobilenet_w1"}, "quant_amax": "amax.npz"},
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         FaceMeshPredictor({"img_size": S}, device="cpu", mesh=object())
     with pytest.raises(FileNotFoundError, match="allow-random-weights"):
@@ -460,9 +461,9 @@ def test_predict_cli_refuses_missing_weights(image_dir, tmp_path):
     with pytest.raises(FileNotFoundError):
         main(["--input", str(image_dir), "--output", str(tmp_path), "--device", "cpu",
               "--checkpoint", str(tmp_path / "none.msgpack")])
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(FileNotFoundError, match="amax"):
         main(["--input", str(image_dir), "--output", str(tmp_path), "--device", "cpu",
-              "--allow-random-weights", "--quant-amax", "amax.npz"])
+              "--allow-random-weights", "--quant-amax", str(tmp_path / "no_amax.npz")])
 
 
 # --------------------------------------------------------------------------

@@ -148,7 +148,7 @@ def test_decode_heatmap_branch_matches_jax():
 def test_port_runs_without_jax():
     """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's batch
     path (both backbones), frames and render paths run on the CPU, its
-    layer zoo, training, dataset and benchmark modules import, and neither
+    layer zoo, int8, training, dataset and benchmark modules import, and neither
     the JAX package nor jax, flax or optax is ever imported (the training CLI runs so in
     tests/test_torch_train_cli.py, the acceptance CLI in
     tests/test_torch_acceptance.py)."""
@@ -167,6 +167,8 @@ def test_port_runs_without_jax():
         from dad3dheads_tpu_torch.render import RenderPipeline
         from dad3dheads_tpu_torch.models import MaskPredictionHead, MobileNetStages, pixel_shuffle
         import dad3dheads_tpu_torch.models.layers, dad3dheads_tpu_torch.models.mobilenet
+        import dad3dheads_tpu_torch.models.quant, dad3dheads_tpu_torch.models.quantized
+        import dad3dheads_tpu_torch.cli.calibrate_int8, dad3dheads_tpu_torch.cli.export, dad3dheads_tpu_torch.precision
         m = FaceMeshPredictor({"img_size": 64, "model": {"backbone": "mobilenet_w1"}}, device="cpu", seed=1)
         assert m.predict_batch(np.zeros((1, 64, 64, 3), np.uint8))["3dmm_params"].shape == (1, 413)
         p = FaceMeshPredictor({"img_size": 64}, device="cpu", seed=1)
