@@ -133,10 +133,24 @@ use. Phases, each of which asserts (any failure exits non-zero):
      gap of 0 to the live int8 predictor. This path's launches of the
      normalize, resample and blendshape kernels go into the kernels line as
      ``launches_int8_path`` (each at least one).
+  11. the rest of training: two resnet50 train steps with lamb on the card
+     and on the CPU from one seeded state (phase 6's tolerances); a
+     ``Trainer`` at full width on ``cli.train --synthetic 4``'s synthetic
+     loaders (batch 64, two epochs) with ``auto_bs`` (capped at 1024: at
+     2048 the stem's output passes 2**31 elements), ``auto_lr`` (8 steps),
+     panels every 2 steps and async checkpoints: the probes' outcomes and peak
+     memory, the tuned batch and lr, the panels in TensorBoard (or an
+     in-memory recorder where it does not import); the fit's async
+     ``last.pt`` and a second async save byte for byte a synchronous save of
+     the same state, and the host time of a save each way; the blendshape
+     pair at every probed batch (the tuned one and the first that did not
+     fit) against its plain versions (phases 3 and 3d's bounds); the panel
+     forward card against CPU. The Trainer's launches go
+     into the kernels line as ``launches_rest_of_training_path``.
 
 Every launch counter is set to 0 just before the path that owns it is driven
-(4, 4b, 4c, 6, 7, each entry point of 8 and 10 and each child of 9) and read
-just after. The kernels are ``torch.library`` custom operators; each counts its
+(4, 4b, 4c, 6, 7, each entry point of 8 and 10, each child of 9, and 11's
+Trainer) and read just after. The kernels are ``torch.library`` custom operators; each counts its
 launches in its CUDA body, so the launches of an exported program count. The line before the last is a JSON object
 with one entry per kernel: its launches on that path, its largest gap to the
 plain version, its time on the card and with the host's dispatch
@@ -894,7 +908,7 @@ def phase3d_blend_backward(flame: FlameModel, flush: torch.Tensor) -> dict:
 # --------------------------------------------------------------------------
 
 
-def _train_parity(model: dict | None = None, tag: str = "train parity") -> dict:
+def _train_parity(model: dict | None = None, tag: str = "train parity", optimizer: dict | None = None) -> dict:
     """Two train steps on the card and on the CPU from the same seeded
     weights (the JAX package's initialisation of ``model``'s network, dropout 0, fp32) and one
     synthetic batch (B = 8, 256x256), with the config's Adam, clip and
@@ -905,7 +919,8 @@ def _train_parity(model: dict | None = None, tag: str = "train parity") -> dict:
     gap under 25% of their norm (the bound tests/test_torch_train_step.py
     holds the port to against JAX); the parameter checksum (their sum)
     within 5% of the update's L1; BN statistics within 1e-3 of each tensor's
-    largest value. Returns the kernels' launches in the card's two steps."""
+    largest value. ``optimizer`` replaces the config's. Returns the kernels'
+    launches in the card's two steps."""
     from dad3dheads_tpu_torch.core import LandmarkEmbedding
     from dad3dheads_tpu_torch.data.synthetic import synthetic_batch
     from dad3dheads_tpu_torch.train import build_train_step, init_train_state
@@ -919,7 +934,7 @@ def _train_parity(model: dict | None = None, tag: str = "train parity") -> dict:
     torch.backends.cudnn.deterministic = True
     try:
         for device in ("cpu", "cuda"):
-            state = init_train_state({**(model or {}), "dropout": 0.0}, config["optimizer"],
+            state = init_train_state({**(model or {}), "dropout": 0.0}, optimizer or config["optimizer"],
                                      torch.Generator().manual_seed(SEED + 61), device,
                                      float(config["gradient_clip_val"]))
             start = {k: v.detach().clone() for k, v in state.model.named_parameters()}
@@ -1642,6 +1657,199 @@ def phase10_int8(config: dict, phase5_ips: dict, phase5b_ips: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# 11: the rest of training
+# --------------------------------------------------------------------------
+
+# the auto_bs probe's cap: at B = 2048 and 256x256 the stem's output passes
+# 2**31 elements, which is no out-of-memory error
+AUTO_BS_MAX = 1024
+LAMB = {"name": "lamb", "lr": 1e-4, "weight_decay": 1e-2}
+
+
+class _Recorder:
+    """TensorBoard's writer in memory (scalars and image shapes), for a
+    machine where ``torch.utils.tensorboard`` does not import."""
+
+    def __init__(self):
+        self.scalars, self.images = [], []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, value, step))
+
+    def add_image(self, tag, img, step, dataformats="HWC"):
+        self.images.append((tag, img.shape, step))
+
+    def flush(self):
+        pass
+
+
+def _same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def _blend_pair_at(flame: FlameModel, B: int) -> float:
+    """The blendshape forward (phase 3's bounds) and backward (phase 3d's)
+    at batch ``B`` against their plain versions, each the same bits on a
+    second launch; returns the largest forward gap."""
+    dirs, template = flame.shapedirs, flame.v_template
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 110)
+    betas = torch.randn((B, dirs.shape[0]), generator=gen).to("cuda")
+    out, again = blend_shapes_fused(betas, dirs, template), blend_shapes_fused(betas, dirs, template)
+    ref = blend_shapes_fused_reference(betas, dirs, template)
+    err = (out - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    print(f"[rest of training] blendshapes B={B}: max abs diff {err:.3g} (rel {rel:.3g}), second launch identical "
+          f"{torch.equal(out, again)}")
+    assert err <= 1e-4 and rel <= 1e-5 and torch.equal(out, again), (B, err, rel)
+    g = torch.randn((B, dirs.shape[1]), generator=gen).to("cuda")
+    out, again = blend_shapes_fused_backward(g, betas, dirs), blend_shapes_fused_backward(g, betas, dirs)
+    ref = blend_shapes_fused_backward_reference(g, betas, dirs)
+    scales = ((g.abs() @ dirs.abs().T).max().item(), (betas.abs().T @ g.abs()).max().item(),
+              g.abs().sum(0).max().item())
+    for name, o, a, r, scale in zip(("d_betas", "d_shapedirs", "d_template"), out, again, ref, scales):
+        e = (o - r).abs().max().item()
+        print(f"[rest of training] blend backward B={B} {name}: max abs diff {e:.3g} (bound 1e-5 x {scale:.3g}), "
+              f"second launch identical {torch.equal(o, a)}")
+        assert o.shape == r.shape and torch.equal(o, a) and e <= 1e-5 * scale, (B, name, e, scale)
+    return err
+
+
+def _panels_card_vs_cpu(state) -> dict:
+    """The panel forward on 8 seeded uint8 images at 256x256 (the normalize
+    kernel on the card), card against the CPU on the same weights: images
+    equal, the heatmap map within one level, the landmarks within 1e-3."""
+    import copy
+    import types
+
+    from dad3dheads_tpu_torch.constants import INPUT_IMAGE_KEY, TARGET_2D_LANDMARKS
+    from dad3dheads_tpu_torch.train.loop import Trainer
+
+    rng = np.random.default_rng(SEED + 111)
+    batch = {INPUT_IMAGE_KEY: torch.from_numpy(rng.integers(0, 256, (8, IMG, IMG, 3), dtype=np.uint8)),
+             TARGET_2D_LANDMARKS: torch.from_numpy(rng.uniform(0.1, 0.9, (8, 68, 2)).astype(np.float32))}
+    state.model.train()  # as the train step leaves it (fit ends on a validation)
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer({"img_size": IMG, "experiment_dir": tmp}, flame=FlameModel.load(), device="cpu")
+        card = [t.cpu() for t in trainer.panel_forward(state, {k: v.cuda() for k, v in batch.items()})]
+        cpu_state = types.SimpleNamespace(model=copy.deepcopy(state.model).cpu())
+        ref = trainer.panel_forward(cpu_state, batch)
+    assert state.model.training and cpu_state.model.training
+    gaps = {"images": int((card[0].int() - ref[0].int()).abs().max()),
+            "heatmap_levels": int((card[1].int() - ref[1].int()).abs().max()),
+            "landmarks": float((card[2] - ref[2]).abs().max())}
+    print(f"[rest of training] panel forward, card against CPU: {gaps}")
+    assert gaps["images"] == 0 and gaps["heatmap_levels"] <= 1 and gaps["landmarks"] <= 1e-3, gaps
+    return gaps
+
+
+def phase11_rest_of_training() -> dict:
+    """lamb's two train steps card against CPU; then a full-width Trainer
+    with auto_bs, auto_lr, image panels and async checkpoints on synthetic
+    batches; the blendshape pair at every probed batch; the panel forward
+    card against CPU; the async checkpoints against synchronous saves. Returns
+    the Trainer's launches (the tuners' probes and sweep, the fit)."""
+    from dad3dheads_tpu_torch.cli.train import SyntheticLoader
+    from dad3dheads_tpu_torch.core import LandmarkEmbedding
+    from dad3dheads_tpu_torch.train.checkpoint import CheckpointManager
+    from dad3dheads_tpu_torch.train.config import load_config
+    from dad3dheads_tpu_torch.train.loop import Trainer, _is_oom
+
+    t0 = time.perf_counter()
+    lamb_launches = _train_parity(tag="lamb parity", optimizer=LAMB)
+    flame, emb = FlameModel.load(device="cuda"), LandmarkEmbedding.load(device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        exp = os.path.join(tmp, "exp")
+        config = load_config("configs/train.yaml", [
+            f"experiment_dir={exp}", "max_epochs=2", "auto_lr=true", "auto_lr_steps=8", "auto_bs=true",
+            f"auto_bs_max={AUTO_BS_MAX}", "images_log_freq=2", "async_checkpoint=true"])
+        # cli.train --synthetic 4's loaders: 4 train batches an epoch, 1 val batch
+        trainer = Trainer(config, SyntheticLoader(flame, emb, TRAIN_B, IMG, 4, 0, "cuda"),
+                          SyntheticLoader(flame, emb, TRAIN_B, IMG, 1, 1, "cuda"), flame=flame, device="cuda")
+        writer = "torch.utils.tensorboard"
+        if not trainer._tb_writer():
+            trainer._tb, writer = _Recorder(), "an in-memory recorder (torch.utils.tensorboard does not import)"
+        probes, probe = [], trainer._probe
+
+        def recorded(sample, bs0, bs):
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                probe(sample, bs0, bs)
+            except Exception as e:
+                probes.append((bs, "out of memory" if _is_oom(e) else type(e).__name__,
+                               torch.cuda.max_memory_allocated()))
+                raise
+            probes.append((bs, "ran", torch.cuda.max_memory_allocated()))
+
+        trainer._probe = recorded
+        reset_launches()
+        t_fit = time.perf_counter()
+        state = trainer.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t_fit
+        launches = read_launches()
+        peak_after = torch.cuda.max_memory_allocated()
+        tuned_bs, tuned_lr = trainer.tuned_batch_size, trainer.tuned_lr
+        oom = any(outcome == "out of memory" for _, outcome, _ in probes)
+        print(f"[rest of training] {SMI}: auto_bs probes (batch, outcome, peak GiB): "
+              f"{[(b, o, round(m / 2**30, 2)) for b, o, m in probes]}; tuned batch {tuned_bs}; out of memory "
+              f"caught {oom}, then fit ran {state.step} steps; tuned lr {tuned_lr:.4g} (base "
+              f"{trainer.base_lr:.4g}); max_memory_allocated since the last probe began {peak_after / 2**30:.2f} "
+              f"GiB; fit {fit_s:.1f} s; writer {writer}; launches {launches}")
+        assert all(o in ("ran", "out of memory") for _, o, _ in probes), probes
+        assert tuned_bs == max(b for b, o, _ in probes if o == "ran") and state.step == 8, (tuned_bs, state.step)
+        assert tuned_lr is not None and 1e-6 <= tuned_lr <= 1.0
+        assert launches["blend_shapes_fused"] >= 1 and launches["blend_shapes_fused_backward"] >= 1, launches
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            epochs = [json.loads(line) for line in f if "train/loss" in line]
+        assert len(epochs) == 2 and all(np.isfinite(v) for e in epochs for v in e.values()), epochs
+        if isinstance(trainer._tb, _Recorder):
+            images = [(tag, step) for tag, _, step in trainer._tb.images]
+        else:
+            from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+            acc = EventAccumulator(os.path.join(exp, "tb"))
+            acc.Reload()
+            images = [(tag, e.step) for tag in acc.Tags()["images"] for e in acc.Images(tag)]
+        print(f"[rest of training] panels written: {sorted(images)}")
+        assert sorted(images) == sorted((t, s) for t in ("train/heatmap", "train/landmarks") for s in (2, 4, 6, 8))
+
+        # the async last.pt against a synchronous save of the same state, and
+        # the host time of a save each way
+        sync = CheckpointManager(os.path.join(tmp, "sync"), monitor=trainer.ckpt.monitor)
+        t_sync = time.perf_counter()
+        sync.save(state, state.epoch, {})
+        sync_s = time.perf_counter() - t_sync
+        again = CheckpointManager(os.path.join(tmp, "async"), monitor=trainer.ckpt.monitor, async_save=True)
+        t_async = time.perf_counter()
+        again.save(state, state.epoch, {})
+        async_s = time.perf_counter() - t_async
+        again.flush()
+        same = (_same_bytes(os.path.join(exp, "checkpoints", "last.pt"), sync.last_path),
+                _same_bytes(again.last_path, sync.last_path))
+        mb = os.path.getsize(sync.last_path) / 1e6
+        print(f"[rest of training] {SMI}: save of the {mb:.1f} MB state on the host's clock: synchronous "
+              f"{sync_s * 1e3:.1f} ms, async {async_s * 1e3:.1f} ms (the rest on the writer thread); the fit's "
+              f"async last.pt and a second async save byte for byte the synchronous one: {same}")
+        assert all(same), same
+        # every batch the probes asked for: the tuned one, and the one past it,
+        # whose probe may have run out of memory before its decode
+        probed = sorted({b for b, _, _ in probes})
+        blend_err = max(_blend_pair_at(flame, B) for B in probed)
+        panels = _panels_card_vs_cpu(state)
+        del trainer, state
+    torch.cuda.empty_cache()
+    numbers = {"probes": [{"batch": b, "outcome": o, "peak_bytes": m} for b, o, m in probes], "tuned_batch": tuned_bs,
+               "tuned_lr": tuned_lr, "oom_caught": oom, "fit_s": fit_s, "writer": writer, "sync_save_s": sync_s,
+               "async_save_s": async_s, "last_pt_mb": mb, "blend_pair_batches": probed, "blend_err": blend_err,
+               "panel_gaps": panels,
+               "lamb_parity_launches": lamb_launches}
+    print(f"[rest of training] phase 11 took {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"rest_of_training_path": {"launches": launches, **numbers}}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available", file=sys.stderr)
@@ -1669,8 +1877,10 @@ def main() -> int:
     mobilenet_launches = phase8_mobilenet()
     export_launches = phase9_export(config, phase5_ips, phase5b_ips)
     int8_launches = phase10_int8(config, phase5_ips, phase5b_ips)
+    training_launches = phase11_rest_of_training()
     # each kernel's launches on the path that serves it, on the dataset path,
-    # on the mobilenet path, on the export path and on the int8 path
+    # on the mobilenet path, on the export path, on the int8 path and on the
+    # rest of training's
     path_of = {"blend_shapes_fused": slice_launches, "normalize_images": slice_launches,
                "resample_normalize": frame_launches, "rasterize_buffers": render_launches,
                "blend_shapes_fused_backward": train_launches}
@@ -1680,7 +1890,8 @@ def main() -> int:
                  "launches_dataset_path": dataset_launches[name],
                  "launches_mobilenet_path": mobilenet_launches[name],
                  "launches_export_path": export_launches[name],
-                 "launches_int8_path": int8_launches[name]}
+                 "launches_int8_path": int8_launches[name],
+                 "launches_rest_of_training_path": training_launches[name]}
         assert entry["launches"] >= 1 and entry["launches_dataset_path"] >= 1, entry
         if name in ("blend_shapes_fused", "normalize_images", "resample_normalize"):
             assert entry["launches_int8_path"] >= 1, entry

@@ -19,10 +19,12 @@ results are copied back and readjusted on the host.
 The model config's ``backbone`` (resnet50, the default, or mobilenet_w1)
 selects the network. Weights come from a JAX-package ``.msgpack`` checkpoint
 of that backbone (another backbone's is refused): the given path, else
-``~/.dad3d_tpu_checkpoints/dad_3dnet.msgpack`` when it exists, else random
-weights from a seeded ``torch.Generator`` (with a warning, or an error with
-``require_weights``). Not ported yet, and refused: the ``model_url``
-download and ``mesh=`` sharding.
+``~/.dad3d_tpu_checkpoints/dad_3dnet.msgpack`` when it exists, else that
+file downloaded from the config's ``model_url`` (``download_model``: urllib,
+with retries), else random weights from a seeded ``torch.Generator`` (with a
+warning, or an error with ``require_weights``). A given path that does not
+exist raises and is never replaced by the cache or a download. Not ported
+yet, and refused: ``mesh=`` sharding.
 
 int8 inference: a ``quant_amax`` config entry (an amax table from
 ``models.quantized.calibrate`` / ``cli.calibrate_int8``, as a dict or an
@@ -78,6 +80,39 @@ DEFAULT_CONFIG: Dict[str, Any] = {
     "constants": dict(FLAME_CONSTS),
     "model": {"backbone": "resnet50", "num_filters": 256, "num_classes": 68, "limit_value": 3},
 }
+
+
+def model_exists(filename: str = _CKPT_FILE) -> bool:
+    return os.path.isfile(os.path.join(_CKPT_DIR, filename))
+
+
+def download_model(url: str, retries: int = 5, filename: str = _CKPT_FILE) -> str:
+    """Download a published checkpoint into the cache dir with ``retries``
+    retries, backing off 1, 2, 4, ... (at most 30) seconds between them;
+    returns its path."""
+    import time
+    import urllib.request
+
+    if retries < 0:
+        raise ValueError("Number of retries should be at least 0")
+    os.makedirs(_CKPT_DIR, exist_ok=True)
+    path = os.path.join(_CKPT_DIR, filename)
+    last_err: Optional[Exception] = None
+    for attempt in range(retries + 1):
+        try:
+            logger.info("downloading %s from %s (attempt %d)", path, url, attempt + 1)
+            with urllib.request.urlopen(url) as r, open(path, "wb") as f:
+                while True:
+                    chunk = r.read(1 << 20)
+                    if not chunk:
+                        break
+                    f.write(chunk)
+            return path
+        except Exception as e:  # noqa: BLE001 -- network errors are retryable
+            last_err = e
+            if attempt < retries:
+                time.sleep(min(2**attempt, 30))
+    raise RuntimeError(f"failed downloading {url}") from last_err
 
 
 def decode_pipeline_outputs(out: Mapping[str, torch.Tensor], stride: int, img_size: int):
@@ -200,17 +235,16 @@ class FaceMeshPredictor:
         if os.path.isfile(path):
             return path
         if self.config.get("model_url"):
-            raise NotImplementedError(
-                f"no checkpoint at {path}, and downloading model_url is not ported "
-                "yet (ROADMAP queue 1, 'Small surface left'): fetch the file and pass it as the checkpoint"
-            )
+            # fetch the published checkpoint into the cache dir
+            return download_model(self.config["model_url"])
         if require_weights:
             raise FileNotFoundError(
                 f"no predictor checkpoint at {path}. Train one (python -m "
                 "dad3dheads_tpu_torch.cli.train), port the reference weights "
                 "(dad3dheads_tpu_torch.weights.state_dict_from_reference, or "
                 "tools/port_torch_weights.py --torch model.trcd --out "
-                "dad_3dnet.msgpack), or pass --allow-random-weights to run with "
+                "dad_3dnet.msgpack), set model_url in the predictor config to "
+                "download one, or pass --allow-random-weights to run with "
                 "random weights."
             )
         return None

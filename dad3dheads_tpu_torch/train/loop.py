@@ -1,33 +1,51 @@
 """The training loop. Mirrors ``dad3dheads_tpu/train/loop.py``: fit over
 epochs with per-step losses and metrics, sanity validation before training,
 validation every n epochs and optionally every n steps, top-k checkpoints on
-the monitored metric, plateau LR, early stopping, a SIGTERM/SIGINT save of
-``last``, evaluation of the best checkpoint, the inference export and, with
-``export_aot``, the deployment artifact (``api/export.py``).
+the monitored metric (written by a writer thread with ``async_checkpoint``,
+the default), plateau LR, early stopping, a SIGTERM/SIGINT save of ``last``,
+evaluation of the best checkpoint, the inference export and, with
+``export_aot``, the deployment artifact (``api/export.py``). Before training,
+``auto_bs`` probes the largest batch that fits and ``auto_lr`` sweeps the
+learning rate, each on a throwaway state.
 
 The loop is host orchestration; every number is computed on the device by
-the two steps, and metrics are summed there: one host read per epoch. Not
-ported yet (ROADMAP queue 1, "The rest of training"): ``auto_lr`` and ``auto_bs`` (refused)
-and TensorBoard, scalars and image panels (``images_log_freq`` logs a
-warning); the scalars go to ``metrics.jsonl``.
+the two steps, and metrics are summed there: one host read per epoch. The
+scalars go to ``metrics.jsonl`` and to TensorBoard (``experiment_dir/tb``,
+when ``tensorboard`` is installed), and every ``images_log_freq`` steps a
+panel forward draws pred-vs-GT landmark and heatmap panels there, off the
+step path.
 """
 
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import logging
 import math
 import os
 import signal
+import sys
 import time
-from typing import Any, Dict, Iterable, List, Optional
+import types
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..constants import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    INPUT_IMAGE_KEY,
+    OUTPUT_2D_LANDMARKS,
+    OUTPUT_LANDMARKS_HEATMAP,
+    TARGET_2D_LANDMARKS,
+)
 from ..core.flame import FlameModel
 from ..losses import LossModule
+from ..ops.preprocess import normalize_images
+from ..precision import fp32_exact
 from .checkpoint import CheckpointManager
 from .schedulers import EarlyStopping, ReduceLROnPlateau, get_schedule
 from .state import TrainState, init_train_state
@@ -68,6 +86,30 @@ def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
     }
 
 
+def _tile(value: Any, reps: int, n: int) -> Any:
+    """A batch entry repeated ``reps`` times along the batch and cut to
+    ``n``: arrays and tensors are concatenated, lists (a loader batch's file
+    names) repeated; anything else is kept."""
+    if isinstance(value, np.ndarray):
+        return np.concatenate([value] * reps, axis=0)[:n]
+    if isinstance(value, torch.Tensor):
+        return torch.cat([value] * reps, dim=0)[:n]
+    if isinstance(value, list):
+        return (value * reps)[:n]
+    return value
+
+
+# what an out-of-memory error says, in the JAX package's tuner and in torch's
+_OOM_MARKERS = ("RESOURCE_EXHAUSTED", "Out of memory", "out of memory", "OOM")
+
+
+def _is_oom(error: BaseException) -> bool:
+    return isinstance(error, torch.OutOfMemoryError) or any(m in repr(error) for m in _OOM_MARKERS)
+
+
+_PANEL_ROWS = 8  # images per panel grid
+
+
 class Trainer:
     """Orchestrates fit / validate / checkpoint / early stop for DAD-3DNet on
     one device."""
@@ -86,16 +128,10 @@ class Trainer:
         self.val_loader = val_loader
         self.flame = flame if flame is not None else FlameModel.load(device=self.device)
 
-        for key in ("auto_lr", "auto_bs"):
-            if config.get(key):
-                raise NotImplementedError(f"{key} is not ported yet (ROADMAP queue 1, 'The rest of training')")
-        if config.get("images_log_freq"):
-            logger.warning(
-                "images_log_freq=%s: TensorBoard and its image panels are not ported yet (ROADMAP queue "
-                "1, 'The rest of training'); the scalars go to metrics.jsonl", config["images_log_freq"],
-            )
         if config.get("debug_nans"):
-            torch.autograd.set_detect_anomaly(True, check_nan=True)
+            from ..utils import enable_nan_debugging
+
+            enable_nan_debugging()
 
         self.img_size = int(config.get("img_size", 256))
         self.max_epochs = int(config.get("max_epochs", 100))
@@ -141,6 +177,8 @@ class Trainer:
             monitor=self.monitor if self.monitor.startswith("valid") else f"valid/{self.monitor}",
             mode=self.monitor_mode,
             save_top_k=int(config.get("save_top_k", 3)),
+            # the device-to-host copy and the file IO overlap the next epoch
+            async_save=bool(config.get("async_checkpoint", True)),
         )
         self.checkpoint_every_n_epochs = int(config.get("checkpoint_every_n_epochs", 1))
         self.sanity_val_steps = int(config.get("sanity_val_steps", 2))
@@ -153,12 +191,136 @@ class Trainer:
         self.check_val_every_n_epoch = int(config.get("check_val_every_n_epoch", 1))
         if self.check_val_every_n_epoch < 1:
             raise ValueError(f"check_val_every_n_epoch={self.check_val_every_n_epoch}: must be >= 1")
+        # the tuners run in fit, before training; their results land here
+        self.auto_lr = bool(config.get("auto_lr", False))
+        self.auto_bs = bool(config.get("auto_bs", False))
+        self.tuned_lr: Optional[float] = None
+        self.tuned_batch_size: Optional[int] = None
+        # pred-vs-GT panels every N steps (0: none), drawn on one worker
+        # thread with at most 2 in flight; _drain_panels joins them
+        self.images_log_freq = int(config.get("images_log_freq", 0))
+        self._panel_pool: Optional[ThreadPoolExecutor] = None
+        self._panel_futs: List[Future] = []
+        self._tb = None  # the SummaryWriter, made on first use; False: none
         self._log_file = open(os.path.join(self.experiment_dir, "metrics.jsonl"), "a")
 
     # -- logging ----------------------------------------------------------
+    def _tb_writer(self):
+        """``torch.utils.tensorboard.SummaryWriter(experiment_dir/tb)``, made
+        on first use; False where TensorBoard is not installed. TensorBoard
+        writes event files through its own stub of TensorFlow's file API when
+        its ``notf`` module is present, as in its TensorFlow-free build;
+        without it, it imports TensorFlow where that is installed, which
+        takes seconds and a GiB and which an event file does not need."""
+        if self._tb is None:
+            sys.modules.setdefault("tensorboard.compat.notf", types.ModuleType("tensorboard.compat.notf"))
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:
+                self._tb = False
+            else:
+                self._tb = SummaryWriter(os.path.join(self.experiment_dir, "tb"))
+        return self._tb
+
     def log_metrics(self, metrics: Dict[str, float], step: int) -> None:
+        tb = self._tb_writer()
+        if tb:
+            for k, v in metrics.items():
+                tb.add_scalar(k, v, step)
         self._log_file.write(json.dumps({"step": step, **metrics}) + "\n")
         self._log_file.flush()
+
+    @torch.no_grad()
+    def panel_forward(self, state: TrainState, batch: Dict[str, Any]) -> Tuple[torch.Tensor, ...]:
+        """The panels' device work on the batch's first 8 rows: the network
+        in eval mode, in the eval step's precision (uint8 images through the
+        normalize kernel), reduced to the uint8 images, the uint8
+        max-over-channels heatmap probability (n, h, w, 1) and the packed
+        (n, 2K) pred + GT landmarks. The model is back in its mode after."""
+        images = batch[INPUT_IMAGE_KEY]
+        n = min(_PANEL_ROWS, int(images.shape[0]))
+        img = images[:n]
+        was_training = state.model.training
+        state.model.eval()
+        try:
+            with fp32_exact():
+                x = normalize_images(img.contiguous()) if img.dtype == torch.uint8 else img
+                out = state.model(x)
+        finally:
+            state.model.train(was_training)
+        if img.dtype == torch.uint8:
+            img_u8 = img
+        else:
+            d = img.float()
+            norm_mode = self.config.get("normalize", "imagenet")
+            if norm_mode == "imagenet":
+                d = d * torch.tensor(IMAGENET_STD, device=d.device) + torch.tensor(IMAGENET_MEAN, device=d.device)
+            elif norm_mode == "mean":
+                d = d * 0.5 + 0.5
+            img_u8 = torch.clamp(d * 255.0, 0, 255).to(torch.uint8)
+        probs = torch.sigmoid(out[OUTPUT_LANDMARKS_HEATMAP].float()).amax(dim=-1, keepdim=True)
+        hm_u8 = torch.round(probs * 255.0).to(torch.uint8)
+        pred = out[OUTPUT_2D_LANDMARKS].float().reshape(n, -1)
+        gt = batch[TARGET_2D_LANDMARKS][:n].float().reshape(n, -1)
+        # the host splits the packed buffer at its midpoint
+        if pred.shape[-1] != gt.shape[-1]:
+            raise ValueError(f"panel landmark count mismatch: the model predicts {pred.shape[-1] // 2} "
+                             f"landmarks but the batch carries {gt.shape[-1] // 2}")
+        return img_u8, hm_u8, torch.cat([pred, gt], dim=-1)
+
+    def log_image_panels(self, state: TrainState, batch: Dict[str, Any], step: int) -> None:
+        """TensorBoard pred-vs-GT landmark and heatmap-overlay panels on the
+        current device batch. The panel forward runs only at log steps; its
+        three outputs come back in one copy into pinned memory, and one
+        worker thread waits for it and draws."""
+        tb = self._tb_writer()
+        if not tb:
+            return
+        from .visualization import heatmap_panel_from_batch, landmarks_panel_from_batch
+
+        img_u8, hm_u8, lmks = self.panel_forward(state, batch)
+        shapes = (img_u8.shape, hm_u8.shape, lmks.shape)
+        packed = torch.cat([img_u8.reshape(-1), hm_u8.reshape(-1), lmks.reshape(-1).view(torch.uint8)])
+        event = None
+        if packed.device.type == "cuda":
+            host = torch.empty(packed.shape, dtype=torch.uint8, pin_memory=True)
+            host.copy_(packed, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host = packed
+        normalize = self.config.get("normalize", "imagenet")
+        img_size = self.img_size
+
+        def draw_and_write():
+            if event is not None:
+                event.synchronize()
+            flat = host.numpy()
+            cuts = np.cumsum([int(np.prod(shapes[0])), int(np.prod(shapes[1]))])
+            img = flat[: cuts[0]].reshape(shapes[0])
+            hm = flat[cuts[0] : cuts[1]].reshape(shapes[1])
+            packed_lmks = flat[cuts[1] :].view(np.float32).reshape(shapes[2])
+            n, k = packed_lmks.shape[0], packed_lmks.shape[1] // 2
+            host_batch = {INPUT_IMAGE_KEY: img, TARGET_2D_LANDMARKS: packed_lmks[:, k:].reshape(n, -1, 2)}
+            host_out = {OUTPUT_2D_LANDMARKS: packed_lmks[:, :k].reshape(n, -1, 2), OUTPUT_LANDMARKS_HEATMAP: hm}
+            tb.add_image("train/landmarks", landmarks_panel_from_batch(host_batch, host_out, img_size,
+                                                                       normalize=normalize),
+                         step, dataformats="HWC")
+            tb.add_image("train/heatmap", heatmap_panel_from_batch(host_batch, host_out, normalize=normalize),
+                         step, dataformats="HWC")
+
+        if self._panel_pool is None:
+            self._panel_pool = ThreadPoolExecutor(1, thread_name_prefix="tb-panels")
+        self._panel_futs = [f for f in self._panel_futs if not f.done()]
+        while len(self._panel_futs) >= 2:  # bound the pinned buffers held
+            self._panel_futs.pop(0).result()
+        self._panel_futs.append(self._panel_pool.submit(draw_and_write))
+
+    def _drain_panels(self) -> None:
+        """Join the panel writes in flight; re-raises a worker's error."""
+        futs, self._panel_futs = self._panel_futs, []
+        for f in futs:
+            f.result()
 
     # -- state -------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -197,6 +359,100 @@ class Trainer:
             return None if steps_per_epoch is None else max(1, int(steps_per_epoch * v))
         return max(1, int(v))
 
+    # -- auto-tuners --------------------------------------------------------
+    def _fresh_state(self, seed: int = 17) -> TrainState:
+        """A throwaway state for the tuners: the train step updates its state
+        in place, so they never touch the one fit trains."""
+        return init_train_state(self.config.get("model", {}), self.opt_cfg, torch.Generator().manual_seed(seed),
+                                self.device, self.gradient_clip_val)
+
+    def tune_lr(self, num_steps: int = 60, min_lr: float = 1e-6, max_lr: float = 1.0, beta: float = 0.9) -> float:
+        """LR-range test: up to ``num_steps`` train steps on a throwaway state
+        with the learning rate swept geometrically from ``min_lr`` to
+        ``max_lr``, tracking the bias-corrected EMA of the loss; the sweep
+        stops at a non-finite loss or once the smoothed loss passes 4x its
+        best. Suggests the learning rate at the steepest descent of the
+        smoothed curve (the base rate when fewer than 4 steps were finite).
+        Never mutates the trainer; ``fit`` applies the suggestion as a
+        multiplier of the base rate."""
+        if self.train_loader is None:
+            raise ValueError("tune_lr requires a train_loader")
+        state = self._fresh_state()
+        lrs = np.geomspace(min_lr, max_lr, num_steps)
+        losses: List[float] = []
+        avg, best = 0.0, math.inf
+
+        def batches():
+            while True:
+                yield from self._batches(self.train_loader)
+
+        for i, batch in zip(range(num_steps), batches()):
+            # cancel the step's linear warmup, so that exactly lrs[i] applies
+            wu = min(1.0, (i + 1.0) / self.warmup_steps) if self.warmup_steps > 0 else 1.0
+            logs = self.train_step(state, self.flame, batch, lrs[i] / (self.base_lr * wu))
+            loss = float(logs["loss"])
+            if not math.isfinite(loss):
+                break
+            avg = beta * avg + (1.0 - beta) * loss
+            smoothed = avg / (1.0 - beta ** (i + 1))
+            if losses and smoothed > 4.0 * best:
+                break  # diverged: the sweep has passed the useful range
+            best = min(best, smoothed)
+            losses.append(smoothed)
+        del state
+        if len(losses) < 4:
+            logger.warning("tune_lr: only %d finite steps, keeping the base lr %.3g", len(losses), self.base_lr)
+            return self.base_lr
+        k = int(np.argmin(np.gradient(np.asarray(losses))))
+        suggested = float(lrs[k])
+        logger.info("tune_lr: suggested lr %.3g after %d steps (smoothed loss %.4f)", suggested, len(losses),
+                    losses[k])
+        return suggested
+
+    def _probe(self, sample: Dict[str, Any], bs0: int, bs: int) -> None:
+        """One train step at batch ``bs`` (the loader's first batch tiled) on
+        a throwaway state; returns once the card has run it."""
+        reps = -(-bs // bs0)
+        probe = _to_device({k: _tile(v, reps, bs) for k, v in sample.items()}, self.device)
+        state = self._fresh_state()
+        logs = self.train_step(state, self.flame, probe, 1.0)
+        float(logs["loss"])
+
+    def tune_batch_size(self, max_trials: int = 6, max_batch_size: int = 8192) -> int:
+        """Batch-size probe: doubles the batch from the loader's own size,
+        one train step per probe on a throwaway state, until a step runs out
+        of memory or the cap is reached; returns the largest batch that ran
+        (the loader's own when none did). Errors other than running out of
+        memory propagate."""
+        if self.train_loader is None:
+            raise ValueError("tune_batch_size requires a train_loader")
+        sample = next(iter(self.train_loader))
+        bs0 = int(next(v for v in sample.values() if isinstance(v, (np.ndarray, torch.Tensor))).shape[0])
+        good: Optional[int] = None
+        bs = bs0
+        for _ in range(max_trials):
+            out_of_memory = False
+            try:
+                self._probe(sample, bs0, bs)
+                good = bs
+                logger.info("tune_batch_size: batch %d fits", bs)
+            except Exception as e:  # noqa: BLE001 -- only running out of memory is expected
+                if not _is_oom(e):
+                    raise
+                out_of_memory = True
+            if out_of_memory:
+                # the error's frames held the probe's tensors; with them gone,
+                # give their blocks back before the real fit allocates
+                gc.collect()
+                if self.device.type == "cuda":
+                    torch.cuda.empty_cache()
+                logger.info("tune_batch_size: batch %d runs out of memory, stopping", bs)
+                break
+            if bs * 2 > max_batch_size:
+                break
+            bs *= 2
+        return good if good is not None else bs0
+
     # -- fit ---------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None, resume: bool = False) -> TrainState:
         if state is None:
@@ -207,8 +463,24 @@ class Trainer:
                 logger.info("resumed from last checkpoint at step %d", state.step)
             except FileNotFoundError:
                 logger.info("no checkpoint to resume from; starting fresh")
-        torch.manual_seed(int(self.config.get("seed", 0)) + 1)  # dropout
         lr_mult = 1.0
+        if self.auto_bs and self.train_loader is not None:
+            self.tuned_batch_size = self.tune_batch_size(
+                max_trials=int(self.config.get("auto_bs_max_trials", 6)),
+                max_batch_size=int(self.config.get("auto_bs_max", 8192)),
+            )
+            for loader in (self.train_loader, self.val_loader):
+                if loader is not None and hasattr(loader, "set_batch_size"):
+                    loader.set_batch_size(self.tuned_batch_size)
+            logger.info("auto_bs: using batch size %d", self.tuned_batch_size)
+        if self.auto_lr and self.train_loader is not None:
+            self.tuned_lr = self.tune_lr(num_steps=int(self.config.get("auto_lr_steps", 60)))
+            # a multiplier of the base rate, so that the plateau and the
+            # schedule compose with it unchanged
+            lr_mult = self.tuned_lr / self.base_lr
+            logger.info("auto_lr: lr %.3g (multiplier %.3g of the base %.3g)", self.tuned_lr, lr_mult, self.base_lr)
+        # dropout, after the tuners: their steps do not move the fit's stream
+        torch.manual_seed(int(self.config.get("seed", 0)) + 1)
 
         preempted = {"flag": False}
 
@@ -242,6 +514,8 @@ class Trainer:
                     host_step += 1
                     acc.add(self.train_step(state, self.flame, batch, lr_mult * sched_factor))
                     n_batches += 1
+                    if self.images_log_freq and host_step % self.images_log_freq == 0:
+                        self.log_image_panels(state, batch, host_step)
                     if val_interval and host_step % val_interval == 0:
                         mid_val = self._validate(state)
                         self.log_metrics(mid_val, host_step)
@@ -254,6 +528,7 @@ class Trainer:
                 if preempted["flag"]:
                     self.ckpt.save(state, epoch, {})
                     self.ckpt.flush_held()
+                    self.ckpt.flush()
                     logger.info("preemption checkpoint saved at step %d", host_step)
                     break
                 train_metrics = {f"train/{k}": v for k, v in acc.means().items()}
@@ -303,10 +578,16 @@ class Trainer:
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
+            # held best epochs reach disk even when fit raises
             self.ckpt.flush_held()
+            try:
+                self._drain_panels()
+            except Exception:  # noqa: BLE001 -- do not mask an exception of fit's
+                logger.exception("image-panel writer failed")
 
         # export the best checkpoint by the monitored metric, else the final
         # state; the best is loaded into a copy, so fit returns the final one
+        self.ckpt.flush()  # the write in flight, before the best is read
         export_state = state
         if self.ckpt.best is not None:
             export_state = self.ckpt.restore(TrainState(copy.deepcopy(state.model), state.optimizer, state.step,
@@ -331,4 +612,6 @@ class Trainer:
             export_predictor(export_state.model, self.flame, aot_path, img_size=self.img_size,
                              devices=tuple(dict.fromkeys((self.device.type, "cpu"))))
             logger.info("exported the deployment artifact to %s", aot_path)
+        if self._tb:
+            self._tb.flush()
         return state

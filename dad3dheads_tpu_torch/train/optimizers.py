@@ -1,13 +1,14 @@
 """Optimizer factory on ``torch.optim``. Mirrors
 ``dad3dheads_tpu/train/optimizers.py``: adam, adamw and sgd (with optional
-weight decay) and radam, from a config dict with the JAX package's keys and
-defaults, with gradient clipping by global norm in front, as the JAX package
-chains ``optax.clip_by_global_norm``.
+weight decay), radam and lamb, from a config dict with the JAX package's keys
+and defaults, with gradient clipping by global norm in front, as the JAX
+package chains ``optax.clip_by_global_norm``. ``torch.optim`` has no LAMB:
+:class:`Lamb` computes ``optax.lamb``'s chain.
 
 Every update of the JAX train step is scaled by ``warmup_factor(step) *
 lr_mult``; for each of these optimizers that equals running that step at the
-base learning rate times the factor, which is what :meth:`Optimizer.step`
-does.
+base learning rate times the factor (the update is linear in the learning
+rate), which is what :meth:`Optimizer.step` does.
 """
 
 from __future__ import annotations
@@ -27,6 +28,64 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
         scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
         torch._foreach_mul_(grads, scale)
     return norm
+
+
+class Lamb(torch.optim.Optimizer):
+    """LAMB as ``optax.lamb`` chains it: ``scale_by_adam`` (eps added after
+    the square root of the bias-corrected second moment, no eps inside it),
+    ``add_decayed_weights(weight_decay)`` on every parameter, then
+    ``scale_by_trust_ratio``: each parameter's update times ||p|| / ||u||
+    (1 where either norm is 0), then -lr. The per-parameter state has
+    ``torch.optim.Adam``'s keys (``step``, ``exp_avg``, ``exp_avg_sq``), so
+    the JAX train-state bridge (``weights.train_state_from_flax``) fills
+    both alike."""
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        super().__init__(params, {"lr": lr, "betas": tuple(betas), "eps": eps, "weight_decay": weight_decay})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            for p in params:
+                state = self.state[p]
+                if not state:
+                    # a host scalar, as torch.optim.Adam keeps it: reading it costs no sync
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            grads = [p.grad for p in params]
+            states = [self.state[p] for p in params]
+            mu, nu = [s["exp_avg"] for s in states], [s["exp_avg_sq"] for s in states]
+            steps = [s["step"] for s in states]
+            torch._foreach_add_(steps, 1.0)
+            b1, b2 = group["betas"]
+            # optax's update_moment: (1 - b) * g + b * m
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - b2)
+            count = float(steps[0])
+            denom = torch._foreach_div(nu, 1.0 - b2**count)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
+            updates = torch._foreach_div(mu, 1.0 - b1**count)
+            torch._foreach_div_(updates, denom)
+            if group["weight_decay"]:
+                torch._foreach_add_(updates, params, alpha=group["weight_decay"])
+            p_norm = torch.stack(torch._foreach_norm(params))
+            u_norm = torch.stack(torch._foreach_norm(updates))
+            ratio = torch.where((p_norm == 0) | (u_norm == 0), torch.ones_like(p_norm), p_norm / u_norm)
+            torch._foreach_mul_(updates, list(ratio.unbind()))
+            torch._foreach_add_(params, updates, alpha=-group["lr"])
+        return loss
 
 
 class Optimizer:
@@ -75,9 +134,9 @@ def get_optimizer(
 ) -> Optimizer:
     """Build the optimizer from a config dict.
 
-    config keys: name (adam|adamw|sgd|radam), lr, weight_decay, momentum,
-    nesterov, eps, betas; ``learning_rate`` overrides config["lr"]. ``lamb``
-    has no ``torch.optim`` counterpart and is not ported yet."""
+    config keys: name (adam|adamw|sgd|radam|lamb), lr, weight_decay,
+    momentum, nesterov, eps, betas; ``learning_rate`` overrides
+    config["lr"]."""
     config = dict(config or {})
     name = config.pop("name", "adam").lower()
     lr = float(learning_rate if learning_rate is not None else config.pop("lr", 1e-4))
@@ -98,10 +157,7 @@ def get_optimizer(
     elif name == "radam":
         opt = torch.optim.RAdam(params, lr=lr, betas=betas, eps=eps)
     elif name == "lamb":
-        raise NotImplementedError(
-            "lamb has no torch.optim counterpart and is not ported yet (ROADMAP queue 1, 'The rest of "
-            "training')"
-        )
+        opt = Lamb(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
     else:
         raise KeyError(f"Unsupported optimizer {name!r}")
     return Optimizer(opt, gradient_clip_val)

@@ -399,6 +399,39 @@ def save_flax_msgpack(variables: Dict[str, Any], path: str) -> str:
 # ``count``; torch.optim.Adam keeps, per parameter in ``model.parameters()``
 # order, ``exp_avg``/``exp_avg_sq`` in the parameter's own layout and a
 # float ``step``. Same update: mu / (1 - b1^t) / (sqrt(nu / (1 - b2^t)) + eps).
+# optax.lamb starts its chain with the same ``ScaleByAdamState`` (the weight
+# decay and the trust ratio keep no state), and the port's ``Lamb`` keeps
+# Adam's keys: one bridge serves both.
+
+
+def adam_moments(opt_state: Any) -> Dict[str, Any]:
+    """The one ``ScaleByAdamState`` inside an optax state (Adam's or lamb's,
+    behind a clip or not) -> {"mu", "nu", "count"} as numpy. Found by its
+    fields, so that flax and optax need not be imported."""
+    found = []
+
+    def walk(node):
+        if isinstance(node, tuple) and getattr(node, "_fields", None) is not None:
+            if {"count", "mu", "nu"} <= set(node._fields):
+                found.append(node)
+                return
+            for child in node:
+                walk(child)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+        elif isinstance(node, Mapping):
+            for child in node.values():
+                walk(child)
+
+    def as_np(tree):
+        return {k: as_np(v) for k, v in tree.items()} if isinstance(tree, Mapping) else np.array(tree)
+
+    walk(opt_state)
+    if len(found) != 1:
+        raise ValueError(f"expected one ScaleByAdamState in the optimizer state, found {len(found)}")
+    (adam,) = found
+    return {"mu": as_np(adam.mu), "nu": as_np(adam.nu), "count": int(np.asarray(adam.count))}
 
 
 def _param_paths(model: torch.nn.Module) -> list:
@@ -411,7 +444,8 @@ def _param_paths(model: torch.nn.Module) -> list:
 
 def adam_state_from_flax(mu: Dict[str, Any], nu: Dict[str, Any], count, model: torch.nn.Module) -> Dict[int, Dict[str, torch.Tensor]]:
     """optax ``ScaleByAdamState`` (mu, nu: trees like ``params``; count) ->
-    the ``state`` part of a ``torch.optim.Adam`` state dict for ``model``."""
+    the ``state`` part of a ``torch.optim.Adam`` (or ``train.optimizers.Lamb``)
+    state dict for ``model``."""
     flat_mu, flat_nu = _flatten({"params": mu}), _flatten({"params": nu})
     step = torch.tensor(float(np.asarray(count)))
     state = {}
@@ -425,8 +459,9 @@ def adam_state_from_flax(mu: Dict[str, Any], nu: Dict[str, Any], count, model: t
 
 
 def flax_adam_state_from_port(state: Dict[int, Dict[str, torch.Tensor]], model: torch.nn.Module) -> Dict[str, Any]:
-    """The inverse: a ``torch.optim.Adam`` state (by parameter index) ->
-    {"mu": tree, "nu": tree, "count": int} in the layout of flax ``params``."""
+    """The inverse: a ``torch.optim.Adam`` or ``Lamb`` state (by parameter
+    index) -> {"mu": tree, "nu": tree, "count": int} in the layout of flax
+    ``params``."""
     out: Dict[str, Any] = {"mu": {}, "nu": {}}
     count = 0
     for i, (path, kind) in enumerate(_param_paths(model)):
@@ -442,16 +477,18 @@ def flax_adam_state_from_port(state: Dict[int, Dict[str, torch.Tensor]], model: 
 
 
 def train_state_from_flax(
-    variables: Dict[str, Any], adam: Dict[str, Any], model: torch.nn.Module, optimizer: torch.optim.Optimizer
+    variables: Dict[str, Any], adam: Any, model: torch.nn.Module, optimizer: torch.optim.Optimizer
 ) -> None:
     """Load the JAX package's train state, as numpy trees, into the port:
-    ``variables`` {"params", "batch_stats"} into ``model``, and ``adam``
-    {"mu", "nu", "count"} (the ``ScaleByAdamState`` inside its
-    clip_by_global_norm chain) into ``optimizer``, a ``torch.optim.Adam``
-    over ``model.parameters()``. Raises if the state is the other
-    backbone's."""
+    ``variables`` {"params", "batch_stats"} into ``model``, and ``adam`` into
+    ``optimizer``, a ``torch.optim.Adam`` or the port's ``Lamb`` over
+    ``model.parameters()``. ``adam`` is {"mu", "nu", "count"} or the optax
+    state that holds them (adam's or lamb's chain, behind a clip or not;
+    see :func:`adam_moments`). Raises if the state is the other backbone's."""
     _check_backbone(flax_backbone(variables), model, "train state")
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    if not (isinstance(adam, dict) and {"mu", "nu", "count"} <= set(adam)):
+        adam = adam_moments(adam)
     state = adam_state_from_flax(adam["mu"], adam["nu"], adam["count"], model)
     # load_state_dict moves the moments to each parameter's device
     optimizer.load_state_dict({"state": state, "param_groups": optimizer.state_dict()["param_groups"]})

@@ -392,8 +392,10 @@ def test_predict_images_device_tensor_matches_jax(predictors):
                              jp.predict_images(jnp.asarray(images), batch_size=4, with_mesh=False), with_mesh=False)
 
 
-def test_predictor_refuses_what_is_not_ported(tmp_path):
+def test_predictor_refuses_what_is_not_ported(tmp_path, monkeypatch):
     from dad3dheads_tpu_torch.api import FaceMeshPredictor
+    from dad3dheads_tpu_torch.api import predictor as tpred
+    from dad3dheads_tpu_torch.weights import flax_from_state_dict, save_flax_msgpack
 
     with pytest.raises(FileNotFoundError, match="checkpoint not found"):
         FaceMeshPredictor({"img_size": S}, checkpoint_path=str(tmp_path / "missing.msgpack"), device="cpu")
@@ -404,12 +406,27 @@ def test_predictor_refuses_what_is_not_ported(tmp_path):
         FaceMeshPredictor({"img_size": S}, device="cpu", mesh=object())
     with pytest.raises(FileNotFoundError, match="allow-random-weights"):
         FaceMeshPredictor.dad_3dnet(device="cpu", require_weights=True)
-    with pytest.raises(NotImplementedError, match="model_url"):
-        FaceMeshPredictor({"img_size": S, "model_url": "https://example.invalid/ck.msgpack"}, device="cpu")
     config = tmp_path / "predictor.yaml"
     config.write_text(f"checkpoint: {tmp_path / 'absent.msgpack'}\nimg_size: {S}\n")
     pred = FaceMeshPredictor.from_yaml(str(config), device="cpu")
     assert pred.loaded_checkpoint is None and pred._img_size == S
+    # model_url: a file:// URL (never the network) into a cache dir moved to tmp_path
+    cache = tmp_path / "cache"
+    monkeypatch.setattr(tpred, "_CKPT_DIR", str(cache))
+    published = save_flax_msgpack(flax_from_state_dict(pred.model.state_dict()), str(tmp_path / "pub.msgpack"))
+    url = f"file://{published}"
+    with pytest.raises(FileNotFoundError, match="checkpoint not found"):  # a given path is never replaced
+        FaceMeshPredictor({"img_size": S, "model_url": url}, checkpoint_path=str(tmp_path / "typo.msgpack"),
+                          device="cpu")
+    assert not tpred.model_exists()
+    got = FaceMeshPredictor({"img_size": S, "model_url": url}, device="cpu", seed=1)
+    assert got.loaded_checkpoint == str(cache / "dad_3dnet.msgpack") and tpred.model_exists()
+    with open(published, "rb") as a, open(got.loaded_checkpoint, "rb") as b:
+        assert a.read() == b.read()
+    ref = pred.model.state_dict()
+    assert all(torch.equal(v, ref[k]) for k, v in got.model.state_dict().items())
+    with pytest.raises(RuntimeError, match="failed downloading"):
+        tpred.download_model(f"file://{tmp_path / 'missing.msgpack'}", retries=0, filename="other.msgpack")
 
 
 # --------------------------------------------------------------------------

@@ -76,7 +76,8 @@ def test_cli_writes_metrics_checkpoints_and_export(run):
     assert 1 <= len(registry) <= 3 and all(os.path.isfile(e["path"]) for e in registry)
     last = torch.load(os.path.join(ck, "last.pt"), weights_only=True)
     assert (last["step"], last["epoch"]) == (4, 1)
-    assert "the TensorBoard" not in proc.stderr and "not ported yet" in proc.stderr  # images_log_freq
+    # the scalars went to TensorBoard too, with no TensorFlow (and so no JAX) in the child
+    assert any(f.startswith("events.out.tfevents") for f in os.listdir(os.path.join(exp, "tb")))
 
 
 def test_both_predictors_load_the_export(run):

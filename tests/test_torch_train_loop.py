@@ -164,8 +164,6 @@ def test_fit_mid_epoch_validation_holds_and_early_stopping(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,error", [
-    ("auto_lr", True, NotImplementedError),
-    ("auto_bs", True, NotImplementedError),
     ("val_check_interval", 1.5, ValueError),
     ("check_val_every_n_epoch", 0, ValueError),
 ])

@@ -15,7 +15,8 @@ from dad3dheads_tpu.train import schedulers as jsched
 from dad3dheads_tpu_torch.train import optimizers as toptim
 from dad3dheads_tpu_torch.train import schedulers as tsched
 
-SHAPES = ((3, 4), (5,), (2, 3, 2))
+SHAPES = ((3, 4), (5,), (2, 3, 2), (4,))
+ZERO_LEAF = 3  # starts at zeros: lamb's trust ratio takes its zero branch
 
 
 def _grads(seed: int, steps: int):
@@ -31,6 +32,8 @@ OPTIMIZERS = [
     {"name": "sgd", "lr": 1e-2, "nesterov": True, "weight_decay": 1e-3},
     {"name": "sgd", "lr": 1e-2, "momentum": 0.0},
     {"name": "radam", "lr": 1e-2},
+    {"name": "lamb", "lr": 1e-2},
+    {"name": "lamb", "lr": 1e-2, "weight_decay": 1e-2},
 ]
 
 
@@ -42,9 +45,11 @@ def test_optimizer_matches_optax(config, clip):
     by ~1e-2): parameters within 1e-6 absolute (fp32 rounding of eight
     updates; radam 1e-5: torch adds eps to sqrt(nu) before the bias
     correction, optax after it), the pre-clip global norm at 1e-6
-    relative."""
+    relative. One parameter starts at zeros (lamb's trust ratio is 1 where
+    a norm is 0)."""
     rng = np.random.default_rng(40)
     init = [rng.normal(size=s).astype(np.float32) for s in SHAPES]
+    init[ZERO_LEAF] = np.zeros_like(init[ZERO_LEAF])
     scales = [0.25, 0.5, 0.75, 1.0, 1.0, 0.5, 1.0, 1.0]
     grads = _grads(41, len(scales))
 
@@ -83,8 +88,6 @@ def test_clip_by_global_norm_matches_optax():
 
 def test_lamb_and_unknown_optimizers_refused():
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        toptim.get_optimizer({"name": "lamb"}, p)
     with pytest.raises(KeyError):
         toptim.get_optimizer({"name": "adagrad"}, p)
 
