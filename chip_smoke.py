@@ -147,10 +147,27 @@ use. Phases, each of which asserts (any failure exits non-zero):
      fit) against its plain versions (phases 3 and 3d's bounds); the panel
      forward card against CPU. The Trainer's launches go
      into the kernels line as ``launches_rest_of_training_path``.
+  12. parallel, resnet50 at 256x256, fp32, dropout 0: (a) ``cli.train
+     --synthetic 4 distributed=true`` in a child with torchrun's variables
+     (a world of one on NCCL) against the same run without ``distributed``
+     (phase 6's tolerances on the epoch's losses, the fit's update and the
+     BN statistics); (b) two gloo ranks sharing the card (NCCL refuses two
+     ranks on one card; ``tests/torch_parallel_worker.py``), each on half
+     of a global batch of 16, two data-parallel steps against one process
+     on the whole batch (the step-0 loss within 1e-5, the first update and
+     BN statistics within phase 6's tolerances, the second step's losses
+     within 10%); (c) ``FaceMeshPredictor(mesh=make_mesh([cuda:0,
+     cuda:0]))``: ``predict_batch`` at B = 255 and ``predict_frames`` on
+     phase 4b's frames against one device (phase 4's tolerances); (d) the
+     heads split over two gloo ranks against the replicated step (logs
+     2e-4 relative, head weights 1e-5). Each leg's wall time; the
+     children's and ranks' launches and the mesh predictor's go into the
+     kernels line as ``launches_parallel_path``.
 
 Every launch counter is set to 0 just before the path that owns it is driven
-(4, 4b, 4c, 6, 7, each entry point of 8 and 10, each child of 9, and 11's
-Trainer) and read just after. The kernels are ``torch.library`` custom operators; each counts its
+(4, 4b, 4c, 6, 7, each entry point of 8 and 10, each child of 9, 11's
+Trainer, and each child, rank and mesh predictor of 12) and read just
+after. The kernels are ``torch.library`` custom operators; each counts its
 launches in its CUDA body, so the launches of an exported program count. The line before the last is a JSON object
 with one entry per kernel: its launches on that path, its largest gap to the
 plain version, its time on the card and with the host's dispatch
@@ -1150,14 +1167,15 @@ def _loader_fed_rate(root: str, flame: FlameModel, synthetic: dict) -> dict:
     """Train steps at B = 64, 256x256, fed by the port's DataLoader (uint8
     batches, device heatmaps) from the rendered 128x128 train set, its index
     repeated 5 times: steps 2-5 of the epoch, timed on the host's clock
-    around the loader and the step; beside phase 6's rate on a batch already
-    on the card. Thread workers (the config's 16, clamped to the cores), then
+    around the loader, the Trainer's ``device_prefetch`` (pinned copies on a
+    side stream) and the step; beside phase 6's rate on a batch already on
+    the card. Thread workers (the config's 16, clamped to the cores), then
     spawned process workers (one per core) beside this CUDA parent, which
     must give the same batches. Also each loader alone: ms per item over its
     second epoch."""
     from dad3dheads_tpu_torch.data.dataset import DataLoader, FlameDataset
+    from dad3dheads_tpu_torch.parallel import device_prefetch, one_device_mesh
     from dad3dheads_tpu_torch.train import build_train_step, init_train_state
-    from dad3dheads_tpu_torch.train.loop import _to_device
 
     base = os.path.join(root, "DAD-3DHeadsDataset", "train")
     ds = FlameDataset.from_config({"ann_path": os.path.join(base, "train.json"), "dataset_root": base,
@@ -1178,8 +1196,8 @@ def _loader_fed_rate(root: str, flame: FlameModel, synthetic: dict) -> dict:
             state = init_train_state({"dtype": dtype}, {"name": "adam", "lr": 1e-4},
                                      torch.Generator().manual_seed(SEED), "cuda", 5.0)
             t0, steps = None, 0
-            for batch in loader:
-                logs = step(state, flame, _to_device(batch, torch.device("cuda")))
+            for batch in device_prefetch(loader, one_device_mesh("cuda")):  # as the Trainer feeds its steps
+                logs = step(state, flame, batch)
                 if t0 is None:
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
@@ -1849,6 +1867,251 @@ def phase11_rest_of_training() -> dict:
     print(json.dumps({"rest_of_training_path": {"launches": launches, **numbers}}))
     return launches
 
+# --------------------------------------------------------------------------
+# 12: parallel
+# --------------------------------------------------------------------------
+
+PARALLEL_MODEL = {"backbone": "resnet50", "dtype": "float32", "dropout": 0.0}
+# the child of 12a: cli.train's main, then its process's launches on a line
+CLI_CHILD = """
+import json, sys
+from dad3dheads_tpu_torch.cli.train import main
+from dad3dheads_tpu_torch.ops import blendshapes
+main(sys.argv[1:])
+print("LAUNCHES " + json.dumps({"blend_shapes_fused": blendshapes.blend_shapes_fused.launches,
+                                "blend_shapes_fused_backward": blendshapes.blend_shapes_fused_backward.launches}))
+"""
+
+
+def _cli_child(exp: str, distributed: bool) -> tuple[float, dict]:
+    """``cli.train --synthetic 4`` at full width, batch 64, one epoch, dropout
+    0, in a child process; with ``distributed``, as torchrun starts a world
+    of one (NCCL on cuda:0). Returns its seconds and launches."""
+    from tests.torch_parallel_worker import free_port
+
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    args = ["--config", "configs/train.yaml", "--synthetic", "4", "--device", "cuda", "max_epochs=1",
+            "model.dropout=0.0", f"experiment_dir={exp}"]
+    if distributed:
+        env.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+        args.append("distributed=true")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_CHILD, *args], env=env, capture_output=True, text=True,
+                          timeout=400)
+    seconds = time.perf_counter() - t0
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    if distributed:
+        assert "rank 0 of 1 on cuda:0" in proc.stderr, proc.stderr[-3000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCHES ")][-1]
+    return seconds, json.loads(line[len("LAUNCHES "):])
+
+
+def _update_gaps(start: dict, got: dict, ref: dict) -> tuple[float, float, float]:
+    """The L2 gap of two updates of ``start``'s parameters, the reference
+    update's L2 norm, and the largest BN-statistics gap over each tensor's
+    largest value."""
+    keys = [k for k in start if "running" not in k and "num_batches" not in k]
+    gap = sum(float(((got[k].double() - ref[k].double()) ** 2).sum()) for k in keys) ** 0.5
+    norm = sum(float(((ref[k].double() - start[k].double()) ** 2).sum()) for k in keys) ** 0.5
+    stats = max(float((got[k] - ref[k]).abs().max() / (ref[k].abs().max() + 1e-12)) for k in start
+                if "running" in k)
+    return gap, norm, stats
+
+
+def _parallel_cli(tmp: str) -> dict:
+    """12a: ``cli.train distributed=true`` in a world of one on NCCL against
+    the same run without it: the epoch's train, valid and best-checkpoint
+    losses within 1e-3 relative, the fit's update of every parameter (from
+    the config's seeded init to ``last.pt``) within 25% of its norm, BN
+    statistics within 1e-3 of each tensor's largest value (phase 6's
+    tolerances)."""
+    from dad3dheads_tpu_torch.models import create_model
+    from dad3dheads_tpu_torch.train.config import load_config
+
+    runs = {}
+    for name, distributed in (("plain", False), ("distributed", True)):
+        exp = os.path.join(tmp, name)
+        seconds, launches = _cli_child(exp, distributed)
+        with open(os.path.join(exp, "metrics.jsonl")) as f:
+            lines = [json.loads(line) for line in f]
+        last = torch.load(os.path.join(exp, "checkpoints", "last.pt"), map_location="cpu", weights_only=True)
+        runs[name] = (lines, last["model"], launches)
+        print(f"[parallel a] cli.train --synthetic 4 {name}: {seconds:.1f} s, {len(lines)} metrics lines, "
+              f"launches {launches}")
+        assert launches["blend_shapes_fused"] >= 4 and launches["blend_shapes_fused_backward"] == 4, launches
+    (pl, psd, _), (dl, dsd, launches) = runs["plain"], runs["distributed"]
+    assert len(pl) == len(dl) == 2, (pl, dl)
+    for key in ("train/loss", "train/heatmap_loss", "train/vertices3d_loss", "valid/loss", "best/loss"):
+        line = 0 if not key.startswith("best") else 1
+        a, b = dl[line][key], pl[line][key]
+        print(f"[parallel a] {key}: distributed {a:.6f} plain {b:.6f} (rel {abs(a - b) / abs(b):.2e}, tol 1e-3)")
+        assert abs(a - b) <= 1e-3 * abs(b), (key, a, b)
+    config = load_config("configs/train.yaml")
+    start = create_model({**config.get("model", {}), "dropout": 0.0},
+                         torch.Generator().manual_seed(int(config.get("seed", 0)))).state_dict()
+    gap, norm, stats = _update_gaps(start, dsd, psd)
+    print(f"[parallel a] the fit's update: L2 gap {gap:.3g} of norm {norm:.3g}; BN statistics gap {stats:.2e}")
+    assert 0 < norm and gap <= 0.25 * norm and stats <= 1e-3, (gap, norm, stats)
+    return launches
+
+
+def _parallel_inputs(tmp: str, batch: int) -> tuple[dict, dict]:
+    """12b/d: the seeded resnet50 (dropout 0) and a synthetic global batch
+    at 256x256, saved where the worker ranks read them."""
+    from dad3dheads_tpu_torch.core import LandmarkEmbedding
+    from dad3dheads_tpu_torch.data.synthetic import synthetic_batch
+    from dad3dheads_tpu_torch.models import create_model
+
+    start = create_model(PARALLEL_MODEL, torch.Generator().manual_seed(SEED + 120)).state_dict()
+    data = synthetic_batch(torch.Generator().manual_seed(SEED + 121), FlameModel.load(), LandmarkEmbedding.load(),
+                           batch, IMG)
+    torch.save(start, os.path.join(tmp, "state.pt"))
+    torch.save(data, os.path.join(tmp, "batch.pt"))
+    return start, data
+
+
+def _parallel_spec() -> dict:
+    from dad3dheads_tpu_torch.train.config import load_config
+
+    config = load_config("configs/train.yaml")
+    return {"model": PARALLEL_MODEL, "optimizer": config["optimizer"], "clip": float(config["gradient_clip_val"]),
+            "warmup": int(config["scheduler"]["warmup_steps"]), "img_size": IMG}
+
+
+def _parallel_step(tmp: str) -> dict:
+    """12b: two gloo ranks sharing cuda:0, each on half of a global batch of
+    16, two data-parallel steps, against one process on the whole batch
+    (cuDNN deterministic on both): the step-0 loss within 1e-5 relative, its
+    other losses within 1e-3 and grad_norm within 2e-2; after the first
+    step the update within 25% of its norm and the BN statistics within
+    1e-3 of each tensor's largest value (phase 6's); the second step's
+    losses within 10% (trajectory only: tests/test_distributed_multiprocess.py)."""
+    from dad3dheads_tpu_torch.models import create_model
+    from dad3dheads_tpu_torch.train import TrainState, build_train_step, get_optimizer
+    from tests.torch_parallel_worker import World
+
+    start, data = _parallel_inputs(tmp, 16)
+    spec = _parallel_spec()
+    t0 = time.perf_counter()
+    world = World("step", tmp, device="cuda:0", spec=spec, steps=2)
+    model = create_model(PARALLEL_MODEL)
+    model.load_state_dict(start)
+    model = model.cuda()
+    state = TrainState(model, get_optimizer(spec["optimizer"], model.parameters(), gradient_clip_val=spec["clip"]))
+    step = build_train_step(img_size=IMG, warmup_steps=spec["warmup"])
+    flame, batch = FlameModel.load(device="cuda"), {k: v.cuda() for k, v in data.items()}
+    with cudnn_deterministic():
+        ref_logs = [{k: float(v) for k, v in step(state, flame, batch).items()}]
+        ref_first = {k: v.cpu() for k, v in model.state_dict().items()}
+        ref_logs.append({k: float(v) for k, v in step(state, flame, batch).items()})
+    ranks = [r["step"] for r in world.results(timeout=600)]
+    seconds = time.perf_counter() - t0
+    logs = ranks[0]["logs"]
+    assert ranks[1]["logs"] == logs
+    for i, (got, ref) in enumerate(zip(logs, ref_logs)):
+        for key in ("loss", "heatmap_loss", "vertices3d_loss", "reprojection_loss", "landmarks_loss", "grad_norm"):
+            rel = abs(got[key] - ref[key]) / abs(ref[key])
+            tol = (1e-5 if key == "loss" else 2e-2 if key == "grad_norm" else 1e-3) if i == 0 else 0.1
+            print(f"[parallel b] step {i} {key}: two ranks {got[key]:.6f} one process {ref[key]:.6f} "
+                  f"(rel {rel:.2e}, tol {tol})")
+            assert rel <= tol, (i, key, got[key], ref[key])
+    gap, norm, stats = _update_gaps(start, ranks[0]["state_dict"], ref_first)
+    print(f"[parallel b] first update: L2 gap {gap:.3g} of norm {norm:.3g}; global-batch BN statistics gap "
+          f"{stats:.2e}; two ranks and the reference {seconds:.1f} s; launches by rank "
+          f"{[r['launches'] for r in ranks]}")
+    assert 0 < norm and gap <= 0.25 * norm and stats <= 1e-3, (gap, norm, stats)
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def _parallel_serving() -> dict:
+    """12c: ``FaceMeshPredictor(mesh=make_mesh([cuda:0, cuda:0]))`` against
+    the unsharded predictor on one checkpoint (phase 4's weights):
+    predict_batch at B = 255 (padded to 256, two chunks) and predict_frames
+    on phase 4b's frames, phase 4's tolerances. Returns the mesh
+    predictor's launches."""
+    from dad3dheads_tpu_torch.parallel import make_mesh
+    from dad3dheads_tpu_torch.weights import flax_from_state_dict, save_flax_msgpack
+
+    config = {"img_size": IMG, "model": {"backbone": "resnet50", "dtype": "float32"}}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = FaceMeshPredictor(config, device="cuda", seed=SEED)
+        randomize_bn_stats(src.model, torch.Generator().manual_seed(SEED + 1))
+        ck = save_flax_msgpack(flax_from_state_dict(src.model.state_dict()), os.path.join(tmp, "p.msgpack"))
+        del src
+        one = FaceMeshPredictor(config, checkpoint_path=ck, device="cuda")
+        two = FaceMeshPredictor(config, checkpoint_path=ck, mesh=make_mesh(["cuda:0", "cuda:0"]))
+    images = np.random.default_rng(SEED + 122).integers(0, 256, (BENCH_B - 1, IMG, IMG, 3), dtype=np.uint8)
+    rng, sizes_hw = frames_4b_sizes(FRAMES_B)
+    frames, boxes = seeded_frames(rng, sizes_hw), face_boxes(rng, sizes_hw)
+    ref = one.predict_batch(images)
+    ref_frames = one.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = two.predict_batch(images)
+    torch.cuda.synchronize()
+    t_batch = time.perf_counter() - t0
+    batch_launches = read_launches()
+    t0 = time.perf_counter()
+    out_frames = two.predict_frames(frames, bboxes=boxes, batch_size=FRAMES_B)
+    t_frames = time.perf_counter() - t0
+    launches = read_launches()
+    print(f"[parallel c] mesh [cuda:0, cuda:0]: predict_batch B={BENCH_B - 1} (first call) {t_batch:.3f} s, "
+          f"launches {batch_launches}; predict_frames {FRAMES_B} frames (first call) {t_frames:.3f} s; "
+          f"launches in all {launches}")
+    assert batch_launches["normalize_images"] == 2 and batch_launches["blend_shapes_fused"] == 2, batch_launches
+    assert launches["resample_normalize"] == 2, launches
+    for key, atol in (("3dmm_params", 1e-3), ("3d_vertices", 1e-3), ("points", 0.5), ("projected_vertices", 0.5)):
+        assert out[key].shape == ref[key].shape, key
+        gap = float(np.abs(out[key] - ref[key]).max())
+        print(f"[parallel c] predict_batch mesh vs one device {key}: max abs gap {gap:.3g} (atol {atol})")
+        assert gap <= atol, (key, gap)
+    compare_predictions(out_frames, ref_frames, "parallel c frames")
+    return launches
+
+
+def _parallel_heads(tmp: str) -> dict:
+    """12d: the three heads split over two gloo ranks sharing cuda:0 (a
+    (1, 2) mesh) against the replicated step in the same ranks, from one
+    seeded state on a batch of 16 (cuDNN deterministic): logs within 2e-4
+    relative, the updated head weights within 1e-5 (the JAX package's
+    bounds, tests/test_model_axis_tp.py); the gathered state dict has the
+    replicated layout."""
+    from tests.torch_parallel_worker import World
+
+    _parallel_inputs(tmp, 16)
+    t0 = time.perf_counter()
+    ranks = [r["tp"] for r in World("tp", tmp, device="cuda:0", spec=_parallel_spec()).results(timeout=600)]
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    worst = max(abs(r0["split_logs"][k] - v) / max(abs(v), 1e-12) for k, v in r0["replicated_logs"].items())
+    heads = max(float((r0["split_heads"][k] - r0["replicated_heads"][k]).abs().max()) for k in r0["split_heads"])
+    print(f"[parallel d] head tensor parallelism over 2 ranks: logs max rel gap {worst:.2e} (tol 2e-4), head "
+          f"weights max abs gap {heads:.3g} (tol 1e-5), shards {r0['shard_shapes']}, {seconds:.1f} s; launches "
+          f"split step by rank {[r['split_launches'] for r in ranks]}")
+    for k, v in r0["replicated_logs"].items():
+        assert abs(r0["split_logs"][k] - v) <= 2e-4 * abs(v) + 1e-12, (k, r0["split_logs"][k], v)
+    assert heads <= 1e-5 and r0["split_layout"] == r0["replicated_layout"], heads
+    return {k: sum(r["split_launches"][k] + r["replicated_launches"][k] for r in ranks)
+            for k in r0["split_launches"]}
+
+
+def phase12_parallel() -> dict:
+    """Data parallelism, serving over a mesh and head tensor parallelism on
+    the one card (legs a-d). Returns the kernels' launches on this path:
+    the blendshape pair in the distributed children and ranks, normalize,
+    resample and blendshape in the mesh predictor."""
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, leg in (("a", lambda: _parallel_cli(tmp)), ("b", lambda: _parallel_step(tmp)),
+                          ("c", _parallel_serving), ("d", lambda: _parallel_heads(tmp))):
+            t = time.perf_counter()
+            for k, v in leg().items():
+                launches[k] += v
+            print(f"[parallel] leg {name}: {time.perf_counter() - t:.1f} s")
+    print(f"[parallel] this path's launches: {launches}; phase 12 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1878,6 +2141,7 @@ def main() -> int:
     export_launches = phase9_export(config, phase5_ips, phase5b_ips)
     int8_launches = phase10_int8(config, phase5_ips, phase5b_ips)
     training_launches = phase11_rest_of_training()
+    parallel_launches = phase12_parallel()
     # each kernel's launches on the path that serves it, on the dataset path,
     # on the mobilenet path, on the export path, on the int8 path and on the
     # rest of training's
@@ -1891,10 +2155,13 @@ def main() -> int:
                  "launches_mobilenet_path": mobilenet_launches[name],
                  "launches_export_path": export_launches[name],
                  "launches_int8_path": int8_launches[name],
-                 "launches_rest_of_training_path": training_launches[name]}
+                 "launches_rest_of_training_path": training_launches[name],
+                 "launches_parallel_path": parallel_launches[name]}
         assert entry["launches"] >= 1 and entry["launches_dataset_path"] >= 1, entry
         if name in ("blend_shapes_fused", "normalize_images", "resample_normalize"):
             assert entry["launches_int8_path"] >= 1, entry
+        if name != "rasterize_buffers":
+            assert entry["launches_parallel_path"] >= 1, entry
         summary.append(entry)
     print(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": summary}))

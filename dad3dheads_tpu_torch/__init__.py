@@ -23,6 +23,9 @@ Layers (bottom-up):
   losses      the four training losses over one shared FLAME decode
   metrics     NME, failure rates, soft IoU
   train       config, optimizers, schedulers, state, step, checkpoints, Trainer
+  parallel    meshes, data parallelism over torch.distributed (global-batch
+              BatchNorm, gradient and log all-reduce), the device prefetcher,
+              head tensor parallelism
   benchmark_harness  the DAD-3DHeads evaluator, ground truth, submissions
   cli         predict, demo, train, make_dataset, benchmark, acceptance, export
 """

@@ -23,8 +23,15 @@ of that backbone (another backbone's is refused): the given path, else
 file downloaded from the config's ``model_url`` (``download_model``: urllib,
 with retries), else random weights from a seeded ``torch.Generator`` (with a
 warning, or an error with ``require_weights``). A given path that does not
-exist raises and is never replaced by the cache or a download. Not ported
-yet, and refused: ``mesh=`` sharding.
+exist raises and is never replaced by the cache or a download.
+
+``mesh=`` (``parallel.make_mesh``) serves the bulk entries sharded over the
+mesh's data rows, as the JAX predictor does over its mesh: each device call
+pads its batch to a multiple of the rows, cuts it into one chunk per row,
+runs each chunk on its device's copy of the network and FLAME (the
+preprocess kernels, the network and the decode, each launch on that device;
+the devices may repeat, as ``[cuda:0, cuda:0]``), and joins the results in
+order on the mesh's first device, without the pad. ``__call__`` runs there.
 
 int8 inference: a ``quant_amax`` config entry (an amax table from
 ``models.quantized.calibrate`` / ``cli.calibrate_int8``, as a dict or an
@@ -40,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures as cf
+import contextlib
 import logging
 import os
 from typing import Any, Dict, Mapping, Optional, Union
@@ -66,6 +74,7 @@ from ..ops.preprocess import (
     readjust_landmarks_np,
 )
 from ..ops.preprocess_device import pack_frames_host, preprocess_frames_device
+from ..parallel import pad_batch_to_devices, replicate, shard_batch
 from ..precision import fp32_exact
 from ..weights import load_checkpoint
 
@@ -151,6 +160,14 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+def _join(parts: list, device: torch.device, n: int):
+    """Per-chunk outputs (tensors, or tuples of them) joined along the batch
+    on ``device`` and cut to ``n`` rows."""
+    if isinstance(parts[0], tuple):
+        return tuple(_join(list(column), device, n) for column in zip(*parts))
+    return torch.cat([p.to(device) for p in parts])[:n]
+
+
 class _Pending:
     """One batch queued on the device: its packed outputs, copied to the host
     without blocking, and the event that says the copy is done."""
@@ -187,16 +204,15 @@ class FaceMeshPredictor:
         loaded when present; otherwise the weights are random, drawn from a
         ``torch.Generator`` seeded with ``seed``, or, with ``require_weights``
         (the CLIs set it unless --allow-random-weights), the call raises.
-        ``device``: where the network and the FLAME decode run."""
+        ``device``: where the network and the FLAME decode run. ``mesh``: a
+        ``parallel.Mesh`` whose data rows share every bulk call (module
+        docstring); ``device`` is then its first device."""
         self.config = {**DEFAULT_CONFIG, **(config or {})}
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= (serving sharded over several devices) is not ported yet: ROADMAP queue 1, 'Parallel'"
-            )
         quant_amax = self.config.get("quant_amax")
         if quant_amax is not None:  # before loading anything
             check_backbone(self.config["model"].get("backbone", "resnet50"))
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.local_devices[0] if mesh is not None else torch.device(device)
         self._img_size = int(self.config["img_size"])
         self._stride = int(self.config.get("stride", 4))
         self._resize_mode = self.config.get("resize_mode", "longest_max_size")
@@ -219,6 +235,11 @@ class FaceMeshPredictor:
             self.quant_amax = amax_tensors(quant_amax, self.device)
             # fold BN and quantize the kernels once; each call reads only these
             self.quant_qparams = prepare_int8_params(self.model, img_size=self._img_size)
+        # a copy of what a call reads on each other device of the mesh
+        self._copies: Dict[torch.device, Dict[str, Any]] = {}
+        if mesh is not None:
+            copies = replicate(self._replica(self.device), mesh)
+            self._copies = {d: r for d, r in copies.items() if d != self.device}
 
     # -- weights -----------------------------------------------------------
     def _checkpoint(self, checkpoint_path: Optional[str], require_weights: bool) -> Optional[str]:
@@ -250,15 +271,41 @@ class FaceMeshPredictor:
         return None
 
     # -- the device pipeline -----------------------------------------------
-    def _network(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The network's outputs on a normalized NHWC batch: the int8 mirror
-        with ``quant_amax``, else the model."""
-        if self.quant_amax is None:
-            return self.model(x)
-        return quantized_forward(self.model, x, self.quant_amax, mode="int8", qparams=self.quant_qparams)[0]
+    def _replica(self, device: torch.device) -> Dict[str, Any]:
+        """What a call on ``device`` reads: the network, FLAME and the int8
+        tables. On the predictor's device they are its attributes, read at
+        the call; on the mesh's other devices, their copies."""
+        if device != self.device:
+            return self._copies[device]
+        return {"model": self.model, "flame": self.flame, "amax": self.quant_amax, "qparams": self.quant_qparams}
+
+    def _sharded(self, fn, *tensors: torch.Tensor):
+        """``fn(*tensors, replica=...)`` on the predictor's device; with a mesh,
+        over its data rows: the batch (host or device tensors) padded with
+        copies of its last row to a multiple of the rows, one chunk per row
+        on its device under that device's replica, the outputs joined in
+        order on the first device without the pad."""
+        if self.mesh is None:
+            return fn(*[t.to(self.device) for t in tensors], replica=self._replica(self.device))
+        n = tensors[0].shape[0]
+        pad = pad_batch_to_devices(n, self.mesh) - n
+        if pad:
+            tensors = tuple(torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) for t in tensors)
+        parts = []
+        for chunk, dev in zip(shard_batch(tuple(tensors), self.mesh), self.mesh.local_devices):
+            with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+                parts.append(fn(*chunk, replica=self._replica(dev)))
+        return _join(parts, self.device, n)
+
+    def _network(self, x: torch.Tensor, replica: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """The network's outputs on a normalized NHWC batch: ``replica``'s
+        int8 mirror with ``quant_amax``, else its model."""
+        if replica["amax"] is None:
+            return replica["model"](x)
+        return quantized_forward(replica["model"], x, replica["amax"], mode="int8", qparams=replica["qparams"])[0]
 
     @torch.inference_mode()
-    def _run(self, x: torch.Tensor):
+    def _run(self, x: torch.Tensor, replica: Dict[str, Any]):
         """Normalized or uint8 NHWC batch on the device -> decoded outputs. A
         uint8 batch is normalized straight into the trunk's dtype (the bf16
         trunk then reads it without a cast); other inputs reach it as fp32."""
@@ -266,17 +313,18 @@ class FaceMeshPredictor:
             x = normalize_images(x, out_dtype=self.model.dtype)
         elif x.dtype != self.model.dtype:
             x = x.float()
-        return decode_pipeline_outputs(self._network(x), self._stride, self._img_size)
+        return decode_pipeline_outputs(self._network(x, replica), self._stride, self._img_size)
 
     @torch.inference_mode()
-    def _run_packed(self, x: torch.Tensor) -> torch.Tensor:
+    def _run_packed(self, x: torch.Tensor, replica: Dict[str, Any]) -> torch.Tensor:
         """As ``_run``, packed into one (B, 136 + 413) fp32 tensor, so that
         each batch comes back in one copy."""
-        dev = self._run(x)
+        dev = self._run(x, replica)
         return torch.cat([dev["landmarks"].reshape(x.shape[0], -1), dev["3dmm"].float()], dim=1)
 
     @torch.inference_mode()
-    def _run_frames(self, frames: torch.Tensor, sizes: torch.Tensor, bboxes: torch.Tensor) -> torch.Tensor:
+    def _run_frames(self, frames: torch.Tensor, sizes: torch.Tensor, bboxes: torch.Tensor,
+                    replica: Dict[str, Any]) -> torch.Tensor:
         """Padded uint8 frames (planar (B, Hmax, 3*Wmax) or NHWC) + sizes +
         boxes on the device -> one packed (B, 2 + 4 + 136 + 413) fp32 tensor:
         the preprocess scales and paddings, then landmarks and 3DMM."""
@@ -285,21 +333,27 @@ class FaceMeshPredictor:
             frames, sizes, bboxes, self._img_size, "imagenet", self._resize_mode, layout=layout,
             out_dtype=self.model.dtype,
         )
-        dev = decode_pipeline_outputs(self._network(images), self._stride, self._img_size)
+        dev = decode_pipeline_outputs(self._network(images, replica), self._stride, self._img_size)
         B = frames.shape[0]
         return torch.cat(
             [scales, paddings.float(), dev["landmarks"].reshape(B, -1), dev["3dmm"].float()], dim=1
         )
 
     @torch.inference_mode()
-    def _decode_3dmm(self, params_3dmm: torch.Tensor):
+    def _decode_3dmm(self, params_3dmm: torch.Tensor, replica: Dict[str, Any]):
         with fp32_exact():
-            return decode_3dmm_to_mesh(self.flame, params_3dmm, self.flame_constants, self._img_size)
+            return decode_3dmm_to_mesh(replica["flame"], params_3dmm, self.flame_constants, self._img_size)
+
+    def _run_decoded(self, x: torch.Tensor, replica: Dict[str, Any]):
+        """``_run`` and the FLAME decode of its 3DMM on one device:
+        (landmarks, 3DMM, vertices, projected vertices)."""
+        dev = self._run(x, replica)
+        return (dev["landmarks"], dev["3dmm"]) + tuple(self._decode_3dmm(dev["3dmm"], replica))
 
     def _mesh_results(self, pts, adj: np.ndarray) -> list:
         """Per-image result dicts for readjusted points and 3DMM rows, with
-        the FLAME decode of the rows on the device."""
-        v3, proj = self._decode_3dmm(torch.from_numpy(np.ascontiguousarray(adj)).to(self.device))
+        the FLAME decode of the rows on the device (the mesh's rows)."""
+        v3, proj = self._sharded(self._decode_3dmm, torch.from_numpy(np.ascontiguousarray(adj)))
         v3, proj = _numpy(v3), _numpy(proj)
         return [
             {"points": pts[j], "projected_vertices": proj[j : j + 1], "3d_vertices": v3[j],
@@ -311,12 +365,13 @@ class FaceMeshPredictor:
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:
         """RGB uint8 (H, W, 3) -> prediction dict in original-image coords."""
         tensor, scale, paddings = preprocess_image_np(image, self._img_size, mode=self._resize_mode)
-        dev = self._run(torch.from_numpy(np.ascontiguousarray(tensor[None])).to(self.device))
+        local = self._replica(self.device)
+        dev = self._run(torch.from_numpy(np.ascontiguousarray(tensor[None])).to(self.device), local)
         landmarks = readjust_landmarks_np(_numpy(dev["landmarks"])[0], paddings, scale)
         pred_3dmm = readjust_3dmm_np(
             _numpy(dev["3dmm"]), paddings, scale, self._img_size, self.flame_constants
         )
-        vertices_3d, projected = self._decode_3dmm(torch.from_numpy(pred_3dmm).to(self.device))
+        vertices_3d, projected = self._decode_3dmm(torch.from_numpy(pred_3dmm).to(self.device), local)
         return {
             "points": np.reshape(landmarks, (-1, 2)),
             "projected_vertices": _numpy(projected),
@@ -329,14 +384,13 @@ class FaceMeshPredictor:
         or fp32-normalized. Returns network-frame outputs as numpy arrays:
         points (B, 68, 2), projected_vertices (B, V, 2), 3d_vertices
         (B, V, 3), 3dmm_params (B, 413), all float32."""
-        x = torch.as_tensor(images).to(self.device).contiguous()
-        dev = self._run(x)
-        vertices_3d, projected = self._decode_3dmm(dev["3dmm"])
+        landmarks, params, vertices_3d, projected = self._sharded(self._run_decoded,
+                                                                  torch.as_tensor(images).contiguous())
         return {
-            "points": _numpy(dev["landmarks"]),
+            "points": _numpy(landmarks),
             "projected_vertices": _numpy(projected),
             "3d_vertices": _numpy(vertices_3d),
-            "3dmm_params": _numpy(dev["3dmm"]),
+            "3dmm_params": _numpy(params),
         }
 
     def predict_images(
@@ -399,7 +453,7 @@ class FaceMeshPredictor:
             x = np.stack([t for t, _, _ in chunk])
             if len(chunk) < batch_size:
                 x = np.concatenate([x, np.repeat(x[-1:], batch_size - len(chunk), 0)])
-            packed = self._run_packed(torch.from_numpy(x).to(self.device))
+            packed = self._sharded(self._run_packed, torch.from_numpy(x))
             pending.append(_Pending(packed, len(chunk), [(s, p) for _, s, p in chunk]))
             if len(pending) >= 2:
                 drain(pending.popleft())
@@ -414,7 +468,7 @@ class FaceMeshPredictor:
         n = images.shape[0]
         if n % batch_size:
             images = torch.cat([images, images[-1:].expand(batch_size - n % batch_size, -1, -1, -1)])
-        outs = [_Pending(self._run_packed(images[lo : lo + batch_size].contiguous()), batch_size, None)
+        outs = [_Pending(self._sharded(self._run_packed, images[lo : lo + batch_size].contiguous()), batch_size, None)
                 for lo in range(0, images.shape[0], batch_size)]
         packed = np.concatenate([o.result() for o in outs])[:n]
         lm_cols = 2 * self.model.num_classes
@@ -484,8 +538,8 @@ class FaceMeshPredictor:
         for lo in range(0, len(frames), batch_size):
             chunk, boxes = frames[lo : lo + batch_size], bb[lo : lo + batch_size]
             buf, sizes, packed_boxes = pack_frames_host(chunk, boxes, batch_size, bucket=frame_bucket, planar=True)
-            dev = [torch.from_numpy(a).to(self.device) for a in (buf, sizes, packed_boxes)]
-            pending.append(_Pending(self._run_frames(*dev), len(chunk), boxes))
+            packed = self._sharded(self._run_frames, *[torch.from_numpy(a) for a in (buf, sizes, packed_boxes)])
+            pending.append(_Pending(packed, len(chunk), boxes))
             if len(pending) >= 2:
                 drain(pending.popleft())
         while pending:

@@ -88,16 +88,10 @@ class FlameModel:
         def put(a):
             return torch.as_tensor(a, dtype=torch.float32).contiguous().to(device)
 
-        def put_rows_aligned(a):
-            t = torch.as_tensor(a, dtype=torch.float32)
-            rows, n = t.shape
-            buf = torch.zeros((rows, -(-n // 4) * 4), dtype=torch.float32, device=device)
-            buf[:, :n] = t
-            return buf[:, :n]
-
         return cls(
             v_template=put(arrays.v_template),
-            shapedirs=put_rows_aligned(arrays.shapedirs.reshape(V * 3, -1).T),
+            shapedirs=_rows_aligned(torch.as_tensor(arrays.shapedirs.reshape(V * 3, -1).T, dtype=torch.float32),
+                                    device),
             posedirs=put(arrays.posedirs),
             j_regressor=put(arrays.j_regressor),
             lbs_weights=put(arrays.lbs_weights),
@@ -113,6 +107,30 @@ class FlameModel:
     @property
     def num_vertices(self) -> int:
         return self.v_template.shape[0]
+
+    def to(self, device: torch.device | str) -> "FlameModel":
+        """A copy on ``device`` (shapedirs' rows aligned there too); this
+        model when it is there already."""
+        device = torch.device(device)
+        if self.v_template.device == device:
+            return self
+        return dataclasses.replace(
+            self,
+            v_template=self.v_template.to(device),
+            shapedirs=_rows_aligned(self.shapedirs, device),
+            posedirs=self.posedirs.to(device),
+            j_regressor=self.j_regressor.to(device),
+            lbs_weights=self.lbs_weights.to(device),
+        )
+
+
+def _rows_aligned(t: torch.Tensor, device: torch.device | str) -> torch.Tensor:
+    """``t`` (rows, n) fp32 on ``device`` as a view of a buffer whose rows are
+    padded to a multiple of 4 floats."""
+    rows, n = t.shape
+    buf = torch.zeros((rows, -(-n // 4) * 4), dtype=torch.float32, device=device)
+    buf[:, :n] = t
+    return buf[:, :n]
 
 
 def _pad_group(x: torch.Tensor, full: int) -> torch.Tensor:

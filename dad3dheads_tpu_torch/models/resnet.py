@@ -11,7 +11,7 @@ Attribute names follow the reference's pytorchcv state-dict keys
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -19,6 +19,17 @@ import torch.nn.functional as F
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1  # torch's convention; the reference's flax momentum 0.9
+
+
+class GroupRef:
+    """A ``torch.distributed`` process group held by a module: copies of the
+    module share it (``copy.deepcopy`` cannot copy a ``ProcessGroup``)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __deepcopy__(self, memo):
+        return self
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -31,11 +42,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     (1-m) old + m u, u = b n/(n-1); the flax value (1-m) old + m b is that
     times (n-1)/n plus (1-m) old / n, a sum of two non-negative terms (no
     cancellation). The copy keeps the running variance that autograd saved
-    for the backward unmodified."""
+    for the backward unmodified.
+
+    ``sync_group``: a ``torch.distributed`` process group of more than one
+    rank (``parallel.set_sync_bn``) makes the train-mode statistics those of
+    the group's global batch (``_global_batch_forward``); None (or a group
+    of one) runs the local batch norm above."""
+
+    _sync: Optional[GroupRef] = None
+
+    @property
+    def sync_group(self):
+        return None if self._sync is None else self._sync.group
+
+    @sync_group.setter
+    def sync_group(self, group) -> None:
+        self._sync = None if group is None else GroupRef(group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
+        if self.sync_group is not None:
+            return self._global_batch_forward(x)
         self.num_batches_tracked.add_(1)
         var = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias, True, self.momentum, self.eps)
@@ -43,6 +71,35 @@ class BatchNorm2d(nn.BatchNorm2d):
         with torch.no_grad():
             self.running_var.mul_((1.0 - self.momentum) / n).add_(var, alpha=(n - 1) / n)
         return y
+
+    def _global_batch_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over the group's global batch, as the JAX step's BN
+        reduces over the batch axis sharded across its mesh: the per-channel
+        sums (and the element count) added over the group by a differentiable
+        all-reduce give the global mean, whose backward carries the other
+        ranks' terms; the squared deviations from that mean are summed the
+        same way (two passes: E[x^2] - E[x]^2 cancels in fp32 on channels
+        whose mean is large against their spread); normalised with the
+        biased variance, in fp32, and returned in the input's dtype. The
+        running statistics follow flax's rule with the global count:
+        (1-m) old + m mean, (1-m) old + m var."""
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        xf = x.float()
+        n = torch.full((1,), x.numel() // c, dtype=torch.float32, device=x.device)
+        sums = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)), n]), group=self.sync_group)
+        count = sums[c].detach()
+        mean = sums[:c] / count
+        d = xf - mean.view(1, c, 1, 1)
+        var = all_reduce((d * d).sum(dim=(0, 2, 3)), group=self.sync_group) / count
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = d * scale.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean.detach(), alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(var.detach(), alpha=self.momentum)
+        return y.to(x.dtype)
 
 
 # Per-backbone channel tables, keyed like the reference's backbone.yaml

@@ -14,6 +14,15 @@ scalars go to ``metrics.jsonl`` and to TensorBoard (``experiment_dir/tb``,
 when ``tensorboard`` is installed), and every ``images_log_freq`` steps a
 panel forward draws pred-vs-GT landmark and heatmap panels there, off the
 step path.
+
+With a ``mesh`` under ``torch.distributed`` (``cli.train distributed=true``,
+one process per device), every rank runs the loop in lockstep on its share
+of each global batch (the loader splits by data row); the steps average
+gradients and logs over the data group, so every rank takes the same
+decisions (validation, plateau, early stopping), and only rank 0 writes:
+checkpoints, ``metrics.jsonl``, TensorBoard and the panels, the exports.
+Batches reach the device through ``parallel.device_prefetch`` (pinned host
+copies on a side stream on a card), with or without a mesh.
 """
 
 from __future__ import annotations
@@ -44,6 +53,15 @@ from ..constants import (
 )
 from ..core.flame import FlameModel
 from ..losses import LossModule
+from ..parallel import (
+    DATA_AXIS,
+    data_group,
+    device_prefetch,
+    one_device_mesh,
+    pad_batch_to_devices,
+    put_global_batch,
+    set_sync_bn,
+)
 from ..ops.preprocess import normalize_images
 from ..precision import fp32_exact
 from .checkpoint import CheckpointManager
@@ -77,15 +95,6 @@ class MetricAccumulator:
         return {k: v / self._n for k, v in zip(self._keys, self._sums.cpu().tolist())}
 
 
-def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, Any]:
-    """Arrays and tensors to the device; other values (a loader batch's
-    lists of sample indices and file names) stay on the host as they are."""
-    return {
-        k: torch.as_tensor(v).to(device, non_blocking=True) if isinstance(v, (np.ndarray, torch.Tensor)) else v
-        for k, v in batch.items()
-    }
-
-
 def _tile(value: Any, reps: int, n: int) -> Any:
     """A batch entry repeated ``reps`` times along the batch and cut to
     ``n``: arrays and tensors are concatenated, lists (a loader batch's file
@@ -112,7 +121,8 @@ _PANEL_ROWS = 8  # images per panel grid
 
 class Trainer:
     """Orchestrates fit / validate / checkpoint / early stop for DAD-3DNet on
-    one device."""
+    one device, or on this rank's device of a distributed ``mesh``
+    (``parallel.make_mesh``; then ``device`` is the mesh's)."""
 
     def __init__(
         self,
@@ -121,9 +131,16 @@ class Trainer:
         val_loader: Optional[Iterable] = None,
         flame: Optional[FlameModel] = None,
         device: torch.device | str = "cuda",
+        mesh=None,
     ):
         self.config = config
-        self.device = torch.device(device)
+        if mesh is not None and len(mesh.local_devices) > 1:
+            raise ValueError(f"{mesh}: the Trainer takes one data row per process; start one process per device "
+                             "(torchrun ... cli.train distributed=true)")
+        self.mesh = mesh if mesh is not None else one_device_mesh(device)
+        self.device = self.mesh.local_device
+        # under torch.distributed only rank 0 writes files
+        self.is_writer = not self.mesh.distributed or torch.distributed.get_rank() == 0
         self.train_loader = train_loader
         self.val_loader = val_loader
         self.flame = flame if flame is not None else FlameModel.load(device=self.device)
@@ -166,10 +183,11 @@ class Trainer:
         hm_stride = int(config.get("stride", 4))
         hm_radius = int(config.get("radius", 5))
         self.train_step = build_train_step(
-            loss_module, self.img_size, self.warmup_steps, heatmap_stride=hm_stride, heatmap_radius=hm_radius
+            loss_module, self.img_size, self.warmup_steps, heatmap_stride=hm_stride, heatmap_radius=hm_radius,
+            mesh=mesh,
         )
         self.eval_step = build_eval_step(
-            loss_module, self.img_size, heatmap_stride=hm_stride, heatmap_radius=hm_radius
+            loss_module, self.img_size, heatmap_stride=hm_stride, heatmap_radius=hm_radius, mesh=mesh
         )
 
         self.ckpt = CheckpointManager(
@@ -201,8 +219,8 @@ class Trainer:
         self.images_log_freq = int(config.get("images_log_freq", 0))
         self._panel_pool: Optional[ThreadPoolExecutor] = None
         self._panel_futs: List[Future] = []
-        self._tb = None  # the SummaryWriter, made on first use; False: none
-        self._log_file = open(os.path.join(self.experiment_dir, "metrics.jsonl"), "a")
+        self._tb = None if self.is_writer else False  # the SummaryWriter, made on first use; False: none
+        self._log_file = open(os.path.join(self.experiment_dir, "metrics.jsonl"), "a") if self.is_writer else None
 
     # -- logging ----------------------------------------------------------
     def _tb_writer(self):
@@ -223,6 +241,8 @@ class Trainer:
         return self._tb
 
     def log_metrics(self, metrics: Dict[str, float], step: int) -> None:
+        if not self.is_writer:
+            return
         tb = self._tb_writer()
         if tb:
             for k, v in metrics.items():
@@ -334,9 +354,15 @@ class Trainer:
             self.gradient_clip_val,
         )
 
+    def _on_mesh(self, state: TrainState) -> TrainState:
+        """``state`` with its BatchNorms over the mesh's data group (the
+        global batch's statistics; nothing changes without one)."""
+        set_sync_bn(state.model, data_group(self.mesh))
+        return state
+
     def _batches(self, loader: Iterable):
-        for batch in loader:
-            yield _to_device(batch, self.device)
+        """The loader's batches on this process's device (its one data row)."""
+        return device_prefetch(loader, self.mesh)
 
     # -- validation --------------------------------------------------------
     def _validate(self, state: TrainState, max_steps: Optional[int] = None) -> Dict[str, float]:
@@ -363,8 +389,9 @@ class Trainer:
     def _fresh_state(self, seed: int = 17) -> TrainState:
         """A throwaway state for the tuners: the train step updates its state
         in place, so they never touch the one fit trains."""
-        return init_train_state(self.config.get("model", {}), self.opt_cfg, torch.Generator().manual_seed(seed),
-                                self.device, self.gradient_clip_val)
+        return self._on_mesh(init_train_state(self.config.get("model", {}), self.opt_cfg,
+                                              torch.Generator().manual_seed(seed), self.device,
+                                              self.gradient_clip_val))
 
     def tune_lr(self, num_steps: int = 60, min_lr: float = 1e-6, max_lr: float = 1.0, beta: float = 0.9) -> float:
         """LR-range test: up to ``num_steps`` train steps on a throwaway state
@@ -410,30 +437,38 @@ class Trainer:
         return suggested
 
     def _probe(self, sample: Dict[str, Any], bs0: int, bs: int) -> None:
-        """One train step at batch ``bs`` (the loader's first batch tiled) on
-        a throwaway state; returns once the card has run it."""
+        """One train step at this process's batch ``bs`` (its first loader
+        batch, of ``bs0`` rows, tiled) on a throwaway state; returns once the
+        card has run it."""
         reps = -(-bs // bs0)
-        probe = _to_device({k: _tile(v, reps, bs) for k, v in sample.items()}, self.device)
+        (probe,) = put_global_batch({k: _tile(v, reps, bs) for k, v in sample.items()}, self.mesh)
         state = self._fresh_state()
         logs = self.train_step(state, self.flame, probe, 1.0)
         float(logs["loss"])
 
     def tune_batch_size(self, max_trials: int = 6, max_batch_size: int = 8192) -> int:
-        """Batch-size probe: doubles the batch from the loader's own size,
-        one train step per probe on a throwaway state, until a step runs out
-        of memory or the cap is reached; returns the largest batch that ran
-        (the loader's own when none did). Errors other than running out of
-        memory propagate."""
+        """Batch-size probe: doubles the global batch from the loader's own
+        size, padded to a multiple of the mesh's data rows
+        (``pad_batch_to_devices``), one train step per probe on a throwaway
+        state, until a step runs out of memory or the cap is reached; returns
+        the largest global batch that ran (the loader's own when none did).
+        Under ``torch.distributed`` each rank probes its share in lockstep,
+        and a rank that runs out of memory alone leaves the others waiting
+        in a collective until the process group's timeout. Errors other than
+        running out of memory propagate."""
         if self.train_loader is None:
             raise ValueError("tune_batch_size requires a train_loader")
         sample = next(iter(self.train_loader))
-        bs0 = int(next(v for v in sample.values() if isinstance(v, (np.ndarray, torch.Tensor))).shape[0])
+        local0 = int(next(v for v in sample.values() if isinstance(v, (np.ndarray, torch.Tensor))).shape[0])
+        rows = self.mesh.shape[DATA_AXIS] if self.mesh.distributed else 1  # processes sharing a batch
+        bs0 = local0 * rows
         good: Optional[int] = None
         bs = bs0
         for _ in range(max_trials):
             out_of_memory = False
+            bs = pad_batch_to_devices(bs, self.mesh)
             try:
-                self._probe(sample, bs0, bs)
+                self._probe(sample, local0, bs // rows)
                 good = bs
                 logger.info("tune_batch_size: batch %d fits", bs)
             except Exception as e:  # noqa: BLE001 -- only running out of memory is expected
@@ -453,10 +488,20 @@ class Trainer:
             bs *= 2
         return good if good is not None else bs0
 
+    def _best_path(self) -> Optional[str]:
+        """The best top-k checkpoint's path (rank 0's, which every rank of a
+        distributed mesh receives once it is on disk), or None."""
+        best = self.ckpt.best if self.is_writer else None
+        path = best["path"] if best is not None else None
+        if self.mesh.distributed:
+            holder = [path]
+            torch.distributed.broadcast_object_list(holder, src=0)
+            path = holder[0]
+        return path
+
     # -- fit ---------------------------------------------------------------
     def fit(self, state: Optional[TrainState] = None, resume: bool = False) -> TrainState:
-        if state is None:
-            state = self.init_state()
+        state = self._on_mesh(state if state is not None else self.init_state())
         if resume:
             try:
                 self.ckpt.restore_last(state)
@@ -514,7 +559,7 @@ class Trainer:
                     host_step += 1
                     acc.add(self.train_step(state, self.flame, batch, lr_mult * sched_factor))
                     n_batches += 1
-                    if self.images_log_freq and host_step % self.images_log_freq == 0:
+                    if self.images_log_freq and host_step % self.images_log_freq == 0 and self.is_writer:
                         self.log_image_panels(state, batch, host_step)
                     if val_interval and host_step % val_interval == 0:
                         mid_val = self._validate(state)
@@ -522,14 +567,16 @@ class Trainer:
                         mv = mid_val.get(self.ckpt.monitor, math.nan)
                         if math.isfinite(mv) and (best_seen is None or self.ckpt.is_better(mv, best_seen)):
                             best_seen = mv
-                            self.ckpt.hold(state, epoch, {self.ckpt.monitor: mv, **mid_val})
+                            if self.is_writer:
+                                self.ckpt.hold(state, epoch, {self.ckpt.monitor: mv, **mid_val})
                     if preempted["flag"]:
                         break
                 if preempted["flag"]:
-                    self.ckpt.save(state, epoch, {})
-                    self.ckpt.flush_held()
-                    self.ckpt.flush()
-                    logger.info("preemption checkpoint saved at step %d", host_step)
+                    if self.is_writer:
+                        self.ckpt.save(state, epoch, {})
+                        self.ckpt.flush_held()
+                        self.ckpt.flush()
+                        logger.info("preemption checkpoint saved at step %d", host_step)
                     break
                 train_metrics = {f"train/{k}": v for k, v in acc.means().items()}
                 steps_per_epoch = n_batches
@@ -558,9 +605,9 @@ class Trainer:
                 if improved:
                     best_seen = monitored
                 saved = (epoch + 1) % self.checkpoint_every_n_epochs == 0 or epoch + 1 >= self.max_epochs
-                if saved:
+                if saved and self.is_writer:
                     self.ckpt.save(state, epoch, {self.ckpt.monitor: monitored, **epoch_metrics})
-                elif improved:
+                elif improved and self.is_writer:
                     self.ckpt.hold(state, epoch, {self.ckpt.monitor: monitored, **epoch_metrics})
 
                 if self.plateau is not None and math.isfinite(monitored):
@@ -572,14 +619,15 @@ class Trainer:
                     and self.early_stopping.step(monitored)
                 ):
                     logger.info("early stopping at epoch %d", epoch)
-                    if not saved:
+                    if not saved and self.is_writer:
                         self.ckpt.save(state, epoch, {})  # refresh last for resume
                     break
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
             # held best epochs reach disk even when fit raises
-            self.ckpt.flush_held()
+            if self.is_writer:
+                self.ckpt.flush_held()
             try:
                 self._drain_panels()
             except Exception:  # noqa: BLE001 -- do not mask an exception of fit's
@@ -589,9 +637,10 @@ class Trainer:
         # state; the best is loaded into a copy, so fit returns the final one
         self.ckpt.flush()  # the write in flight, before the best is read
         export_state = state
-        if self.ckpt.best is not None:
+        best_path = self._best_path()
+        if best_path is not None:
             export_state = self.ckpt.restore(TrainState(copy.deepcopy(state.model), state.optimizer, state.step,
-                                                        state.epoch))
+                                                        state.epoch), best_path)
             if self.val_loader is not None and self.config.get("eval_best", True):
                 bacc = MetricAccumulator()
                 for batch in self._batches(self.val_loader):
@@ -602,6 +651,8 @@ class Trainer:
                     "best-checkpoint eval: %s",
                     {k: round(v, 4) for k, v in best_metrics.items() if "nme" in k or k == "best/loss"},
                 )
+        if not self.is_writer:
+            return state
         export_path = self.ckpt.export_inference(export_state)
         logger.info("exported inference checkpoint to %s", export_path)
         if self.config.get("export_aot", False):

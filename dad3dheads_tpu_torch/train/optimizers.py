@@ -18,12 +18,27 @@ from typing import Any, Dict, Iterable, Optional
 import torch
 
 
-def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads, max_norm: float, sharded=None) -> torch.Tensor:
     """optax's ``clip_by_global_norm`` in place: every gradient times
     max_norm / norm when norm >= max_norm, untouched otherwise. Returns the
     norm before clipping. No host sync: the choice is a ``where`` on the
-    device."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    device. ``sharded``: (indices into ``grads``, process group) of
+    gradients split over that group (head tensor parallelism): their squares
+    are summed over it, so that every rank clips by the whole gradient's
+    norm."""
+    norms = torch.stack(torch._foreach_norm(grads))
+    if sharded is None:
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        import torch.distributed as dist
+
+        index, group = sharded
+        split = torch.zeros(len(grads), dtype=torch.bool, device=norms.device)
+        split[list(index)] = True
+        squares = norms.square()
+        shard_sq = squares[split].sum()
+        dist.all_reduce(shard_sq, group=group)
+        norm = torch.sqrt(squares[~split].sum() + shard_sq)
     if max_norm and max_norm > 0:
         scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
         torch._foreach_mul_(grads, scale)
@@ -105,15 +120,24 @@ class Optimizer:
         self.optimizer.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self, scale: float = 1.0) -> torch.Tensor:
+    def step(self, scale: float = 1.0, sharded=None) -> torch.Tensor:
         """Clip, then update at lr * ``scale``. A parameter the loss did not
         reach gets a zero gradient, as in optax. Returns the global gradient
-        norm before clipping (``optax.global_norm(grads)``)."""
+        norm before clipping (``optax.global_norm(grads)``). ``sharded``:
+        (parameters, process group) of parameters split over that group
+        (``parallel.sharded_parameters``), whose gradients' squares the
+        norm sums over it."""
         params = self.params
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_([p.grad for p in params], self.gradient_clip_val)
+        if sharded is not None:
+            if isinstance(self.optimizer, Lamb):
+                raise NotImplementedError("lamb's per-parameter trust ratio over sharded head weights is not "
+                                          "implemented: train head tensor parallelism with adam, adamw, sgd or radam")
+            ids = {id(p) for p in sharded[0]}
+            sharded = ([i for i, p in enumerate(params) if id(p) in ids], sharded[1])
+        norm = clip_by_global_norm_([p.grad for p in params], self.gradient_clip_val, sharded)
         for group, lr in zip(self.optimizer.param_groups, self.base_lrs):
             group["lr"] = lr * float(scale)
         self.optimizer.step()

@@ -9,6 +9,18 @@ backward included, runs with TF32 off (``precision.fp32_exact``), whatever
 the caller's settings: an fp32 model in full fp32, a bf16 model with its
 trunk under autocast and its heads, the geometry and the losses in fp32, as
 in inference.
+
+With a ``mesh`` under ``torch.distributed`` (``parallel.make_mesh``), the
+step is the JAX package's step on a batch sharded over the mesh's data axis:
+each rank takes its share of the global batch; every train-mode BatchNorm
+computes the global batch's statistics (``parallel.set_sync_bn``, which
+whoever builds the distributed model calls once: the ``Trainer`` does); after the
+backward the gradients are averaged over the data group
+(``parallel.all_reduce_gradients``), so that clipping and the update see the
+global batch's gradient; the logs are the global batch's means. Head weights
+split over the model group (``parallel.shard_heads``) enter the global norm
+with their shards' squares summed. A world of one (or no mesh) runs the
+one-process step unchanged.
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from ..losses import LossModule, SharedFlameDecode, shared_flame_decode_raw
 from ..metrics import compute_step_metrics
 from ..ops.heatmap import encode_heatmap
 from ..ops.preprocess import normalize_images
+from ..parallel import all_reduce_gradients, all_reduce_mean, data_group, sharded_parameters
 from ..precision import fp32_exact
 from .schedulers import warmup_factor
 from .state import TrainState
@@ -123,27 +136,36 @@ def build_train_step(
     with_metrics: bool = True,
     heatmap_stride: int = 4,
     heatmap_radius: int = 5,
+    mesh=None,
 ) -> Callable:
     """Returns ``train_step(state, flame, batch, lr_mult=1.0) -> logs``,
     which updates ``state`` in place. ``lr_mult`` is the host's multiplier
     (plateau and epoch schedule); the linear warmup comes from
     ``state.step``. Logs are 0-d device tensors: ``loss``, the weighted
     losses, ``metrics/*`` (unless ``with_metrics`` is false, as when timing
-    the step alone) and ``grad_norm`` (before clipping)."""
+    the step alone) and ``grad_norm`` (before clipping). With a distributed
+    ``mesh``, ``batch`` is this rank's share of the global batch (module
+    docstring)."""
     common = _StepCommon(loss_module, img_size, heatmap_stride, heatmap_radius)
+    group = data_group(mesh)
+    split_heads = mesh is not None and mesh.shape["model"] > 1
 
     def train_step(state: TrainState, flame: FlameModel, batch: Dict[str, torch.Tensor], lr_mult: float = 1.0):
         state.optimizer.zero_grad()
         with fp32_exact():
             total, outputs, shared, loss_dict, targets = common.forward_and_loss(state, flame, batch, True)
             total.backward()
-        grad_norm = state.optimizer.step(warmup_factor(state.step, warmup_steps) * float(lr_mult))
+        if group is not None:
+            all_reduce_gradients(state.optimizer.params, group)
+        grad_norm = state.optimizer.step(warmup_factor(state.step, warmup_steps) * float(lr_mult),
+                                         sharded_parameters(state.model) if split_heads else None)
         state.step += 1
         logs = {"loss": total, **loss_dict}
         if with_metrics:
             logs.update({f"metrics/{k}": v for k, v in common.metrics(outputs, targets, shared).items()})
         logs["grad_norm"] = grad_norm
-        return _detached(logs)
+        logs = _detached(logs)
+        return logs if group is None else all_reduce_mean(logs, group)
 
     return train_step
 
@@ -153,10 +175,13 @@ def build_eval_step(
     img_size: int = 256,
     heatmap_stride: int = 4,
     heatmap_radius: int = 5,
+    mesh=None,
 ) -> Callable:
     """Returns ``eval_step(state, flame, batch) -> logs`` (eval mode, no
-    gradients)."""
+    gradients); with a distributed ``mesh`` the logs are the global batch's
+    means, so that every rank takes the same decisions on them."""
     common = _StepCommon(loss_module, img_size, heatmap_stride, heatmap_radius)
+    group = data_group(mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, flame: FlameModel, batch: Dict[str, torch.Tensor]):
@@ -164,6 +189,6 @@ def build_eval_step(
             total, outputs, shared, loss_dict, targets = common.forward_and_loss(state, flame, batch, False)
         logs = {"loss": total, **loss_dict}
         logs.update({f"metrics/{k}": v for k, v in common.metrics(outputs, targets, shared).items()})
-        return logs
+        return logs if group is None else all_reduce_mean(logs, group)
 
     return eval_step

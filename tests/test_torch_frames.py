@@ -395,6 +395,7 @@ def test_predict_images_device_tensor_matches_jax(predictors):
 def test_predictor_refuses_what_is_not_ported(tmp_path, monkeypatch):
     from dad3dheads_tpu_torch.api import FaceMeshPredictor
     from dad3dheads_tpu_torch.api import predictor as tpred
+    from dad3dheads_tpu_torch.parallel import make_mesh
     from dad3dheads_tpu_torch.weights import flax_from_state_dict, save_flax_msgpack
 
     with pytest.raises(FileNotFoundError, match="checkpoint not found"):
@@ -402,8 +403,8 @@ def test_predictor_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="resnet50"):  # int8 covers the flagship only
         FaceMeshPredictor({"img_size": S, "model": {"backbone": "mobilenet_w1"}, "quant_amax": "amax.npz"},
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        FaceMeshPredictor({"img_size": S}, device="cpu", mesh=object())
+    with pytest.raises(RuntimeError, match="the mesh names cuda:99"):  # no fallback hides a missing card
+        FaceMeshPredictor({"img_size": S}, mesh=make_mesh(["cuda:99", "cuda:99"]))
     with pytest.raises(FileNotFoundError, match="allow-random-weights"):
         FaceMeshPredictor.dad_3dnet(device="cpu", require_weights=True)
     config = tmp_path / "predictor.yaml"

@@ -162,8 +162,9 @@ def test_card_decode_under_tf32_caller_matches_the_cpu(restore_settings, cuda):
     rng = np.random.default_rng(0)
     params = np.concatenate([head_params(seed) for seed in range(64)]).astype(np.float32)
     params[:, :400] += rng.normal(size=(64, 400)).astype(np.float32) * 0.5
-    out = [t.cpu().numpy() for t in FaceMeshPredictor(config, device=cuda)._decode_3dmm(torch.from_numpy(params).cuda())]
-    ref = [t.numpy() for t in FaceMeshPredictor(config, device="cpu")._decode_3dmm(torch.from_numpy(params))]
+    out, ref = ([t.cpu().numpy() for t in pred._decode_3dmm(torch.from_numpy(params).to(pred.device),
+                                                             pred._replica(pred.device))]
+                for pred in (FaceMeshPredictor(config, device=cuda), FaceMeshPredictor(config, device="cpu")))
     assert np.abs(out[0] - ref[0]).max() <= 1e-3
     assert np.abs(out[1] - ref[1]).max() <= 0.5
     assert torch.get_float32_matmul_precision() == "high"

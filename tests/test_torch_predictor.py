@@ -112,7 +112,8 @@ def test_predict_batch_feeds_the_trunk_its_dtype(predictors, bf16_predictor):
     with torch.inference_mode():
         x = normalize_images_reference(torch.from_numpy(images)).float()
         dev = tpred.decode_pipeline_outputs(bf16_predictor.model(x), 4, IMG)
-        vertices, projected = bf16_predictor._decode_3dmm(dev["3dmm"])
+        local = bf16_predictor._replica(bf16_predictor.device)
+        vertices, projected = bf16_predictor._decode_3dmm(dev["3dmm"], local)
     ref = {"points": dev["landmarks"], "3dmm_params": dev["3dmm"], "3d_vertices": vertices,
            "projected_vertices": projected}
     for key, value in ref.items():
@@ -145,10 +146,11 @@ def test_decode_heatmap_branch_matches_jax():
     np.testing.assert_array_equal(out["3dmm"].numpy(), np.asarray(ref["3dmm"]))
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     """In a fresh interpreter with DAD3D_PLATFORM cleared, the port's batch
-    path (both backbones), frames and render paths run on the CPU, its
-    layer zoo, int8, training, dataset and benchmark modules import, and neither
+    path (both backbones; resnet50's over a two-row mesh), frames and render
+    paths run on the CPU, its layer zoo, int8, training, parallel, dataset and
+    benchmark modules import, a Trainer over a mesh is built, and neither
     the JAX package nor jax, flax or optax is ever imported (the training CLI runs so in
     tests/test_torch_train_cli.py, the acceptance CLI in
     tests/test_torch_acceptance.py)."""
@@ -169,9 +171,12 @@ def test_port_runs_without_jax():
         import dad3dheads_tpu_torch.models.layers, dad3dheads_tpu_torch.models.mobilenet
         import dad3dheads_tpu_torch.models.quant, dad3dheads_tpu_torch.models.quantized
         import dad3dheads_tpu_torch.cli.calibrate_int8, dad3dheads_tpu_torch.cli.export, dad3dheads_tpu_torch.precision
+        from dad3dheads_tpu_torch.parallel import make_mesh, shard_heads, set_sync_bn, device_prefetch
+        from dad3dheads_tpu_torch.train.loop import Trainer
+        Trainer({"experiment_dir": sys.argv[1]}, device="cpu", mesh=make_mesh(["cpu"]))
         m = FaceMeshPredictor({"img_size": 64, "model": {"backbone": "mobilenet_w1"}}, device="cpu", seed=1)
         assert m.predict_batch(np.zeros((1, 64, 64, 3), np.uint8))["3dmm_params"].shape == (1, 413)
-        p = FaceMeshPredictor({"img_size": 64}, device="cpu", seed=1)
+        p = FaceMeshPredictor({"img_size": 64}, device="cpu", seed=1, mesh=make_mesh(["cpu", "cpu"]))
         out = p.predict_batch(np.zeros((2, 64, 64, 3), np.uint8))
         assert out["3d_vertices"].shape == (2, 5023, 3), out["3d_vertices"].shape
         assert np.isfinite(out["3d_vertices"]).all()
@@ -187,7 +192,7 @@ def test_port_runs_without_jax():
     )
     env = {k: v for k, v in os.environ.items() if k != "DAD3D_PLATFORM"}
     proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert proc.returncode == 0 and "NO_JAX_OK" in proc.stdout, proc.stderr[-3000:]
 

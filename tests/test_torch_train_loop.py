@@ -203,6 +203,7 @@ def test_fit_saves_last_on_sigterm(tmp_path):
     state = Trainer(config, _SignallingLoader(3, 0), None, device="cpu").fit()
     assert signal.getsignal(signal.SIGTERM) is before
     last = torch.load(os.path.join(config["experiment_dir"], "checkpoints", "last.pt"), weights_only=True)
-    # the signal arrives while the loop fetches the second batch: that step
-    # finishes, then the epoch ends early (3 batches offered)
-    assert state.step == last["step"] == 2 and last["epoch"] == 0
+    # the signal arrives while the prefetcher fetches the second batch, one
+    # ahead of the first step: that step finishes, then the epoch ends early
+    # (3 batches offered)
+    assert state.step == last["step"] == 1 and last["epoch"] == 0
