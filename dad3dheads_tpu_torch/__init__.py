@@ -28,6 +28,8 @@ Layers (bottom-up):
               head tensor parallelism
   benchmark_harness  the DAD-3DHeads evaluator, ground truth, submissions
   cli         predict, demo, train, make_dataset, benchmark, acceptance, export
+  tracing     stage spans (``span``) of the predictor, the train step and the
+              int8 mirror, recorded only under a ``torch.profiler`` session
 """
 
 __version__ = "0.1.0"

@@ -41,6 +41,19 @@ folded and quantized once, at load. resnet50 only.
 
 The FLAME decode runs with TF32 off (``precision.fp32_exact``), whatever the
 caller's settings.
+
+Under a profiler each call is a tree of stage spans (``tracing.span``): a
+root per entry point (``dad3d.predict_batch``, ``dad3d.predict_frames``,
+``dad3d.predict_images``, ``dad3d.predict``), and in it
+``dad3d.serve.upload`` (``bytes=`` handed to the device, ``copies=`` made),
+``dad3d.serve.normalize``, ``dad3d.serve.network`` (the network and its
+landmark and 3DMM decode; timed on the device), ``dad3d.serve.decode``
+(FLAME, rotation, projection; timed) and ``dad3d.serve.readback``
+(``bytes=``, ``copies=``), whose child ``dad3d.serve.wait`` is its first
+copy, the one that waits for the device's queue. The frames and host-image
+batches copy back asynchronously instead: ``dad3d.serve.readback_queue``
+(``bytes=``, ``copies=``) when the copy is queued, ``dad3d.serve.readback_wait``
+when its result is taken.
 """
 
 from __future__ import annotations
@@ -76,6 +89,7 @@ from ..ops.preprocess import (
 from ..ops.preprocess_device import pack_frames_host, preprocess_frames_device
 from ..parallel import pad_batch_to_devices, replicate, shard_batch
 from ..precision import fp32_exact
+from ..tracing import span
 from ..weights import load_checkpoint
 
 logger = logging.getLogger(__name__)
@@ -156,8 +170,28 @@ def coerce_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x.float()), 0, 255).to(torch.uint8)
 
 
-def _numpy(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _moves(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t.to(device)`` copies."""
+    return t.device.type != device.type or (device.index is not None and t.device.index != device.index)
+
+
+def _upload(tensors, device: torch.device) -> list:
+    """The tensors on ``device``, in the ``dad3d.serve.upload`` span."""
+    with span("dad3d.serve.upload", bytes=sum(t.nbytes for t in tensors),
+              copies=sum(_moves(t, device) for t in tensors)):
+        return [t.to(device) for t in tensors]
+
+
+def _readback(*tensors: torch.Tensor) -> list:
+    """The tensors as numpy arrays, in the ``dad3d.serve.readback`` span. The
+    first copy (callers put the smallest first) blocks until the device's
+    queue drains: it is the child span ``dad3d.serve.wait``, so that the
+    readback's host time less the wait is the other copies'."""
+    with span("dad3d.serve.readback", bytes=sum(t.nbytes for t in tensors),
+              copies=sum(t.device.type != "cpu" for t in tensors)):
+        with span("dad3d.serve.wait"):
+            first = tensors[0].detach().cpu().numpy()
+        return [first] + [t.detach().cpu().numpy() for t in tensors[1:]]
 
 
 def _join(parts: list, device: torch.device, n: int):
@@ -174,17 +208,20 @@ class _Pending:
 
     def __init__(self, packed: torch.Tensor, count: int, meta: Any):
         self.count, self.meta = count, meta
-        if packed.device.type == "cuda":
-            self.host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-            self.host.copy_(packed, non_blocking=True)
-            self.event = torch.cuda.Event()
-            self.event.record()
-        else:
-            self.host, self.event = packed, None
+        on_card = packed.device.type == "cuda"
+        with span("dad3d.serve.readback_queue", bytes=packed.nbytes, copies=int(on_card)):
+            if on_card:
+                self.host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                self.host.copy_(packed, non_blocking=True)
+                self.event = torch.cuda.Event()
+                self.event.record()
+            else:
+                self.host, self.event = packed, None
 
     def result(self) -> np.ndarray:
         if self.event is not None:
-            self.event.synchronize()
+            with span("dad3d.serve.readback_wait"):
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -286,13 +323,16 @@ class FaceMeshPredictor:
         on its device under that device's replica, the outputs joined in
         order on the first device without the pad."""
         if self.mesh is None:
-            return fn(*[t.to(self.device) for t in tensors], replica=self._replica(self.device))
+            return fn(*_upload(tensors, self.device), replica=self._replica(self.device))
         n = tensors[0].shape[0]
         pad = pad_batch_to_devices(n, self.mesh) - n
         if pad:
             tensors = tuple(torch.cat([t, t[-1:].expand(pad, *t.shape[1:])]) for t in tensors)
+        with span("dad3d.serve.upload", bytes=sum(t.nbytes for t in tensors),
+                  copies=sum(_moves(t, d) for t in tensors for d in self.mesh.local_devices)):
+            chunks = shard_batch(tuple(tensors), self.mesh)
         parts = []
-        for chunk, dev in zip(shard_batch(tuple(tensors), self.mesh), self.mesh.local_devices):
+        for chunk, dev in zip(chunks, self.mesh.local_devices):
             with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
                 parts.append(fn(*chunk, replica=self._replica(dev)))
         return _join(parts, self.device, n)
@@ -309,11 +349,13 @@ class FaceMeshPredictor:
         """Normalized or uint8 NHWC batch on the device -> decoded outputs. A
         uint8 batch is normalized straight into the trunk's dtype (the bf16
         trunk then reads it without a cast); other inputs reach it as fp32."""
-        if x.dtype == torch.uint8:
-            x = normalize_images(x, out_dtype=self.model.dtype)
-        elif x.dtype != self.model.dtype:
-            x = x.float()
-        return decode_pipeline_outputs(self._network(x, replica), self._stride, self._img_size)
+        with span("dad3d.serve.normalize"):
+            if x.dtype == torch.uint8:
+                x = normalize_images(x, out_dtype=self.model.dtype)
+            elif x.dtype != self.model.dtype:
+                x = x.float()
+        with span("dad3d.serve.network", timed=True):
+            return decode_pipeline_outputs(self._network(x, replica), self._stride, self._img_size)
 
     @torch.inference_mode()
     def _run_packed(self, x: torch.Tensor, replica: Dict[str, Any]) -> torch.Tensor:
@@ -329,11 +371,13 @@ class FaceMeshPredictor:
         boxes on the device -> one packed (B, 2 + 4 + 136 + 413) fp32 tensor:
         the preprocess scales and paddings, then landmarks and 3DMM."""
         layout = "planar" if frames.ndim == 3 else "nhwc"
-        images, scales, paddings = preprocess_frames_device(
-            frames, sizes, bboxes, self._img_size, "imagenet", self._resize_mode, layout=layout,
-            out_dtype=self.model.dtype,
-        )
-        dev = decode_pipeline_outputs(self._network(images, replica), self._stride, self._img_size)
+        with span("dad3d.serve.normalize"):
+            images, scales, paddings = preprocess_frames_device(
+                frames, sizes, bboxes, self._img_size, "imagenet", self._resize_mode, layout=layout,
+                out_dtype=self.model.dtype,
+            )
+        with span("dad3d.serve.network", timed=True):
+            dev = decode_pipeline_outputs(self._network(images, replica), self._stride, self._img_size)
         B = frames.shape[0]
         return torch.cat(
             [scales, paddings.float(), dev["landmarks"].reshape(B, -1), dev["3dmm"].float()], dim=1
@@ -341,7 +385,7 @@ class FaceMeshPredictor:
 
     @torch.inference_mode()
     def _decode_3dmm(self, params_3dmm: torch.Tensor, replica: Dict[str, Any]):
-        with fp32_exact():
+        with span("dad3d.serve.decode", timed=True), fp32_exact():
             return decode_3dmm_to_mesh(replica["flame"], params_3dmm, self.flame_constants, self._img_size)
 
     def _run_decoded(self, x: torch.Tensor, replica: Dict[str, Any]):
@@ -354,7 +398,7 @@ class FaceMeshPredictor:
         """Per-image result dicts for readjusted points and 3DMM rows, with
         the FLAME decode of the rows on the device (the mesh's rows)."""
         v3, proj = self._sharded(self._decode_3dmm, torch.from_numpy(np.ascontiguousarray(adj)))
-        v3, proj = _numpy(v3), _numpy(proj)
+        proj, v3 = _readback(proj, v3)
         return [
             {"points": pts[j], "projected_vertices": proj[j : j + 1], "3d_vertices": v3[j],
              "3dmm_params": adj[j : j + 1]}
@@ -364,18 +408,19 @@ class FaceMeshPredictor:
     # -- public API --------------------------------------------------------
     def __call__(self, image: np.ndarray) -> Dict[str, Any]:
         """RGB uint8 (H, W, 3) -> prediction dict in original-image coords."""
-        tensor, scale, paddings = preprocess_image_np(image, self._img_size, mode=self._resize_mode)
-        local = self._replica(self.device)
-        dev = self._run(torch.from_numpy(np.ascontiguousarray(tensor[None])).to(self.device), local)
-        landmarks = readjust_landmarks_np(_numpy(dev["landmarks"])[0], paddings, scale)
-        pred_3dmm = readjust_3dmm_np(
-            _numpy(dev["3dmm"]), paddings, scale, self._img_size, self.flame_constants
-        )
-        vertices_3d, projected = self._decode_3dmm(torch.from_numpy(pred_3dmm).to(self.device), local)
+        with span("dad3d.predict"):
+            tensor, scale, paddings = preprocess_image_np(image, self._img_size, mode=self._resize_mode)
+            local = self._replica(self.device)
+            dev = self._run(*_upload([torch.from_numpy(np.ascontiguousarray(tensor[None]))], self.device), local)
+            landmarks, params = _readback(dev["landmarks"], dev["3dmm"])
+            landmarks = readjust_landmarks_np(landmarks[0], paddings, scale)
+            pred_3dmm = readjust_3dmm_np(params, paddings, scale, self._img_size, self.flame_constants)
+            vertices_3d, projected = self._decode_3dmm(*_upload([torch.from_numpy(pred_3dmm)], self.device), local)
+            projected, vertices_3d = _readback(projected, vertices_3d[0])
         return {
             "points": np.reshape(landmarks, (-1, 2)),
-            "projected_vertices": _numpy(projected),
-            "3d_vertices": _numpy(vertices_3d[0]),
+            "projected_vertices": projected,
+            "3d_vertices": vertices_3d,
             "3dmm_params": pred_3dmm,
         }
 
@@ -384,13 +429,14 @@ class FaceMeshPredictor:
         or fp32-normalized. Returns network-frame outputs as numpy arrays:
         points (B, 68, 2), projected_vertices (B, V, 2), 3d_vertices
         (B, V, 3), 3dmm_params (B, 413), all float32."""
-        landmarks, params, vertices_3d, projected = self._sharded(self._run_decoded,
-                                                                  torch.as_tensor(images).contiguous())
+        images = torch.as_tensor(images).contiguous()
+        with span("dad3d.predict_batch"):
+            landmarks, params, vertices_3d, projected = _readback(*self._sharded(self._run_decoded, images))
         return {
-            "points": _numpy(landmarks),
-            "projected_vertices": _numpy(projected),
-            "3d_vertices": _numpy(vertices_3d),
-            "3dmm_params": _numpy(params),
+            "points": landmarks,
+            "projected_vertices": projected,
+            "3d_vertices": vertices_3d,
+            "3dmm_params": params,
         }
 
     def predict_images(
@@ -414,11 +460,19 @@ class FaceMeshPredictor:
                 raise ValueError(f"expected (N, {self._img_size}, {self._img_size}, 3), got {tuple(images.shape)}")
             if images.shape[0] == 0:
                 return []
-            x = images.to(self.device)
-            return self._predict_bulk_device(x if x.dtype == torch.uint8 else coerce_u8(x), batch_size, with_mesh)
+            with span("dad3d.predict_images"):
+                (x,) = _upload([images], self.device)
+                return self._predict_bulk_device(x if x.dtype == torch.uint8 else coerce_u8(x), batch_size,
+                                                 with_mesh)
         images = list(images)
         if not images:
             return []
+        with span("dad3d.predict_images"):
+            return self._predict_host_images(images, batch_size, num_workers, with_mesh)
+
+    def _predict_host_images(self, images: list, batch_size: int, num_workers: int, with_mesh: bool) -> list:
+        """``predict_images`` on host images: resized on the host, then one
+        uint8 device batch at a time, each copied back while the next runs."""
 
         def prep(im):
             if im.dtype != np.uint8:
@@ -505,6 +559,10 @@ class FaceMeshPredictor:
         frames = list(frames)
         if not frames:
             return []
+        with span("dad3d.predict_frames"):
+            return self._predict_frames(frames, bboxes, batch_size, with_mesh, frame_bucket)
+
+    def _predict_frames(self, frames: list, bboxes, batch_size: int, with_mesh: bool, frame_bucket: int) -> list:
         if bboxes is None:
             bb = [(0, 0, f.shape[1], f.shape[0]) for f in frames]
         else:

@@ -35,6 +35,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..tracing import span
+
 QMAX = 127
 INT_MM_MIN_ROWS = 17  # torch._int_mm on CUDA: more than 16 rows
 INT_MM_ALIGN = 8  # torch._int_mm on CUDA: K and N multiples of 8
@@ -48,12 +50,14 @@ class QTensor(NamedTuple):
 
 
 def quantize(x: torch.Tensor, scale: torch.Tensor) -> QTensor:
-    q = torch.clamp(torch.round(x.float() / scale), -QMAX, QMAX)
-    return QTensor(q.to(torch.int8), scale)
+    with span("dad3d.int8.quantize"):
+        q = torch.clamp(torch.round(x.float() / scale), -QMAX, QMAX)
+        return QTensor(q.to(torch.int8), scale)
 
 
 def dequantize(q: QTensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    return (q.values.float() * q.scale).to(dtype)
+    with span("dad3d.int8.dequantize"):
+        return (q.values.float() * q.scale).to(dtype)
 
 
 def _amax_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -99,17 +103,18 @@ def _im2col(values: torch.Tensor, k: int, stride: int, pad: int, k_cols: int, ex
     are one strided view of the padded input (a 1x1 conv's, the input
     itself), copied once; a 1x1 stride-1 conv that needs no padding is the
     input, viewed."""
-    C = values.shape[3]
-    if pad:
-        values = F.pad(values, (0, 0, pad, pad, pad, pad))
-    if k == 1:
-        cols = values[:, ::stride, ::stride].reshape(-1, C)
-    else:
-        # (B, Ho, Wo, C, kh, kw) -> (B, Ho, Wo, kh, kw, C)
-        cols = values.unfold(1, k, stride).unfold(2, k, stride).permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * C)
-    if k_cols > cols.shape[1] or extra_rows:
-        cols = F.pad(cols, (0, k_cols - cols.shape[1], 0, extra_rows))
-    return cols
+    with span("dad3d.int8.im2col"):
+        C = values.shape[3]
+        if pad:
+            values = F.pad(values, (0, 0, pad, pad, pad, pad))
+        if k == 1:
+            cols = values[:, ::stride, ::stride].reshape(-1, C)
+        else:
+            # (B, Ho, Wo, C, kh, kw) -> (B, Ho, Wo, kh, kw, C)
+            cols = values.unfold(1, k, stride).unfold(2, k, stride).permute(0, 1, 2, 4, 5, 3).reshape(-1, k * k * C)
+        if k_cols > cols.shape[1] or extra_rows:
+            cols = F.pad(cols, (0, k_cols - cols.shape[1], 0, extra_rows))
+        return cols
 
 
 def conv_int8_accumulator(values: torch.Tensor, weight: torch.Tensor, k: int, stride: int,
@@ -125,7 +130,8 @@ def conv_int8_accumulator(values: torch.Tensor, weight: torch.Tensor, k: int, st
     extra = INT_MM_MIN_ROWS if Ho * Wo < INT_MM_MIN_ROWS else 0
     B = values.shape[0]
     cols = _im2col(values, k, stride, pad, weight.shape[1], extra)
-    return torch._int_mm(cols, weight.t())[: B * Ho * Wo].view(B, Ho, Wo, -1)
+    with span("dad3d.int8.int_mm"):
+        return torch._int_mm(cols, weight.t())[: B * Ho * Wo].view(B, Ho, Wo, -1)
 
 
 def conv_int8_accumulator_reference(values: torch.Tensor, kernel_q: torch.Tensor, stride: int,
@@ -162,13 +168,15 @@ def _epilogue(acc: torch.Tensor, x_scale: torch.Tensor, w_scale: torch.Tensor, b
               relu: bool) -> torch.Tensor:
     """Dequantize the int32 sums (the padded columns dropped), add the
     bias, ReLU: fp32."""
-    y = acc[..., : w_scale.shape[0]].float() * (x_scale * w_scale) + bias
-    return torch.clamp_min(y, 0.0) if relu else y
+    with span("dad3d.int8.epilogue"):
+        y = acc[..., : w_scale.shape[0]].float() * (x_scale * w_scale) + bias
+        return torch.clamp_min(y, 0.0) if relu else y
 
 
 def _residual(a: QTensor, b: QTensor) -> torch.Tensor:
     """Dequantize both operands, add, ReLU: fp32."""
-    return torch.clamp_min(a.values.float() * a.scale + b.values.float() * b.scale, 0.0)
+    with span("dad3d.int8.residual"):
+        return torch.clamp_min(a.values.float() * a.scale + b.values.float() * b.scale, 0.0)
 
 
 def add_relu_requant(a: QTensor, b: QTensor, out_scale: torch.Tensor) -> QTensor:

@@ -21,10 +21,11 @@ each convolution operator ran (``aten::cudnn_convolution`` against
 channels_last input reaches through layout copies); and, for mobilenet_w1,
 its 13 depthwise convolutions alone at B = 256, forward and backward, to
 name their kernels. Then the int8 ``predict_batch`` (resnet50, ``quant_amax``
-calibrated on 64 of the images, B = 256, fp32 and bf16), with the int8
-mirror's stages labelled for the profiler (``int8_stages_ms``: the im2col
-copies, ``torch._int_mm``, the epilogue, the residual joins, the
-(re)quantization and the dequantization of the dense taps). With
+calibrated on 64 of the images, B = 256, fp32 and bf16), with the device
+time of each of the int8 mirror's stage spans (``int8_stages_ms``, the
+``dad3d.int8.*`` spans of ``models/quant.py``: the im2col copies,
+``torch._int_mm``, the epilogue, the residual joins, the (re)quantization
+and the dequantization of the dense taps). With
 ``--trace-dir`` it also writes each chrome trace there.
 Needs a CUDA card; imports nothing of JAX.
 """
@@ -32,7 +33,6 @@ Needs a CUDA card; imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import functools
 import json
 import os
 import sys
@@ -42,7 +42,7 @@ import time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
 from .api import FaceMeshPredictor
 from .models import randomize_bn_stats
@@ -67,7 +67,7 @@ BUCKETS = (
     ("max pool", ("max_pool",)),
 )
 OTHER = "elementwise and other"
-INT8_LABEL = "int8: "  # the prefix of the int8 mirror's stage labels
+INT8_SPANS = "dad3d.int8."  # the prefix of the int8 mirror's stage spans
 FIRST_EVENTS = 12  # device events listed in order from the start of each traced call
 TOP_KERNELS = 12  # kernels listed by their device time in each traced call
 
@@ -129,7 +129,7 @@ def trace(fn, label: str, trace_dir: str | None) -> dict:
             "top_kernels_ms": [(name[:160], ms) for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:TOP_KERNELS]],
             "conv_ops": conv_ops,
             "int8_stages_ms": {e.key: e.device_time_total / 1e3 for e in prof.key_averages()
-                               if e.key.startswith(INT8_LABEL)}}
+                               if e.key.startswith(INT8_SPANS)}}
 
 
 def trace_train_step(backbone: str, dtype: str, seed: int, trace_dir: str | None) -> dict:
@@ -180,36 +180,11 @@ def trace_depthwise(dtype: str, trace_dir: str | None) -> dict:
     return result
 
 
-def _int8_stages():
-    """(module, function, label) of the int8 mirror's leaf stages, none of
-    which calls another."""
-    from .models import quant, quantized
-
-    return (
-        (quant, "_im2col", INT8_LABEL + "im2col (padding, window copy)"),
-        (torch, "_int_mm", INT8_LABEL + "torch._int_mm (int8 x int8 -> int32)"),
-        (quant, "_epilogue", INT8_LABEL + "epilogue (dequantize the sums, bias, ReLU)"),
-        (quant, "_residual", INT8_LABEL + "residual joins (dequantize, add, ReLU)"),
-        (quant, "quantize", INT8_LABEL + "(re)quantize (divide, round, clamp, cast)"),
-        (quantized, "quantize", INT8_LABEL + "(re)quantize (divide, round, clamp, cast)"),
-        (quantized, "dequantize", INT8_LABEL + "dequantize (dense taps, upsample inputs)"),
-    )
-
-
-def _labelled(fn, label: str):
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with record_function(label):
-            return fn(*args, **kwargs)
-
-    return wrapper
-
-
 def trace_int8(images: np.ndarray, seed: int, trace_dir: str | None) -> list:
     """int8 ``predict_batch`` of the resnet50 at B = 256, fp32 and bf16: the
     weights of the other traces (seeded, BN statistics randomized) through a
     checkpoint, ``quant_amax`` calibrated in the model's dtype on the first
-    64 images; the mirror's stages labelled while it is traced."""
+    64 images; the mirror's stages read from its own spans."""
     from .models import create_model
     from .models.quantized import calibrate
     from .ops.preprocess import normalize_images
@@ -218,7 +193,6 @@ def trace_int8(images: np.ndarray, seed: int, trace_dir: str | None) -> list:
     model = create_model({}, torch.Generator().manual_seed(seed))
     randomize_bn_stats(model, torch.Generator().manual_seed(seed + 1))
     results = []
-    stages = _int8_stages()
     with tempfile.TemporaryDirectory() as tmp:
         ck = save_flax_msgpack(flax_from_state_dict(model.state_dict()), os.path.join(tmp, "ck.msgpack"))
         for dtype in ("float32", "bfloat16"):
@@ -228,14 +202,8 @@ def trace_int8(images: np.ndarray, seed: int, trace_dir: str | None) -> list:
             amax = calibrate(fp.model, [x[:32], x[32:]])
             del fp
             pred = FaceMeshPredictor({**config, "quant_amax": amax}, checkpoint_path=ck, device="cuda")
-            for mod, name, label in stages:
-                setattr(mod, name, _labelled(getattr(mod, name), label))
-            try:
-                results.append(trace(lambda: pred.predict_batch(images), f"resnet50_int8_predict_batch_B256_{dtype}",
-                                     trace_dir))
-            finally:
-                for mod, name, _ in stages:
-                    setattr(mod, name, getattr(mod, name).__wrapped__)
+            results.append(trace(lambda: pred.predict_batch(images), f"resnet50_int8_predict_batch_B256_{dtype}",
+                                 trace_dir))
             del pred
             torch.cuda.empty_cache()
     return results

@@ -21,6 +21,11 @@ global batch's gradient; the logs are the global batch's means. Head weights
 split over the model group (``parallel.shard_heads``) enter the global norm
 with their shards' squares summed. A world of one (or no mesh) runs the
 one-process step unchanged.
+
+Under a profiler each step is a tree of stage spans (``tracing.span``):
+``dad3d.train_step`` (the eval step's ``dad3d.eval_step``) over
+``dad3d.train.targets``, ``.forward``, ``.loss``, ``.backward``,
+``.allreduce`` (with a mesh), ``.optimizer`` and ``.panel``.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from ..ops.heatmap import encode_heatmap
 from ..ops.preprocess import normalize_images
 from ..parallel import all_reduce_gradients, all_reduce_mean, data_group, sharded_parameters
 from ..precision import fp32_exact
+from ..tracing import span
 from .schedulers import warmup_factor
 from .state import TrainState
 
@@ -96,11 +102,14 @@ class _StepCommon:
         self._face_idx = torch.as_tensor(assets.get_flame_indices("face"), dtype=torch.int64)
 
     def forward_and_loss(self, state: TrainState, flame: FlameModel, batch, train: bool):
-        targets = _prepare_targets(batch, self.img_size, self.heatmap_stride, self.heatmap_radius)
-        state.model.train(train)
-        outputs = state.model(targets[INPUT_IMAGE_KEY])
-        shared = shared_flame_decode_raw(flame, outputs[OUTPUT_3DMM_PARAMS], FLAME_CONSTS, self.img_size)
-        total, loss_dict = self.loss_module(outputs, targets, shared, state.epoch)
+        with span("dad3d.train.targets"):
+            targets = _prepare_targets(batch, self.img_size, self.heatmap_stride, self.heatmap_radius)
+        with span("dad3d.train.forward"):
+            state.model.train(train)
+            outputs = state.model(targets[INPUT_IMAGE_KEY])
+        with span("dad3d.train.loss"):
+            shared = shared_flame_decode_raw(flame, outputs[OUTPUT_3DMM_PARAMS], FLAME_CONSTS, self.img_size)
+            total, loss_dict = self.loss_module(outputs, targets, shared, state.epoch)
         return total, outputs, shared, loss_dict, targets
 
     @torch.no_grad()
@@ -151,21 +160,26 @@ def build_train_step(
     split_heads = mesh is not None and mesh.shape["model"] > 1
 
     def train_step(state: TrainState, flame: FlameModel, batch: Dict[str, torch.Tensor], lr_mult: float = 1.0):
-        state.optimizer.zero_grad()
-        with fp32_exact():
-            total, outputs, shared, loss_dict, targets = common.forward_and_loss(state, flame, batch, True)
-            total.backward()
-        if group is not None:
-            all_reduce_gradients(state.optimizer.params, group)
-        grad_norm = state.optimizer.step(warmup_factor(state.step, warmup_steps) * float(lr_mult),
-                                         sharded_parameters(state.model) if split_heads else None)
-        state.step += 1
-        logs = {"loss": total, **loss_dict}
-        if with_metrics:
-            logs.update({f"metrics/{k}": v for k, v in common.metrics(outputs, targets, shared).items()})
-        logs["grad_norm"] = grad_norm
-        logs = _detached(logs)
-        return logs if group is None else all_reduce_mean(logs, group)
+        with span("dad3d.train_step"):
+            state.optimizer.zero_grad()
+            with fp32_exact():
+                total, outputs, shared, loss_dict, targets = common.forward_and_loss(state, flame, batch, True)
+                with span("dad3d.train.backward"):
+                    total.backward()
+            if group is not None:
+                with span("dad3d.train.allreduce"):
+                    all_reduce_gradients(state.optimizer.params, group)
+            with span("dad3d.train.optimizer"):
+                grad_norm = state.optimizer.step(warmup_factor(state.step, warmup_steps) * float(lr_mult),
+                                                 sharded_parameters(state.model) if split_heads else None)
+            state.step += 1
+            with span("dad3d.train.panel"):
+                logs = {"loss": total, **loss_dict}
+                if with_metrics:
+                    logs.update({f"metrics/{k}": v for k, v in common.metrics(outputs, targets, shared).items()})
+                logs["grad_norm"] = grad_norm
+                logs = _detached(logs)
+            return logs if group is None else all_reduce_mean(logs, group)
 
     return train_step
 
@@ -185,10 +199,12 @@ def build_eval_step(
 
     @torch.no_grad()
     def eval_step(state: TrainState, flame: FlameModel, batch: Dict[str, torch.Tensor]):
-        with fp32_exact():
-            total, outputs, shared, loss_dict, targets = common.forward_and_loss(state, flame, batch, False)
-        logs = {"loss": total, **loss_dict}
-        logs.update({f"metrics/{k}": v for k, v in common.metrics(outputs, targets, shared).items()})
-        return logs if group is None else all_reduce_mean(logs, group)
+        with span("dad3d.eval_step"):
+            with fp32_exact():
+                total, outputs, shared, loss_dict, targets = common.forward_and_loss(state, flame, batch, False)
+            with span("dad3d.train.panel"):
+                logs = {"loss": total, **loss_dict}
+                logs.update({f"metrics/{k}": v for k, v in common.metrics(outputs, targets, shared).items()})
+            return logs if group is None else all_reduce_mean(logs, group)
 
     return eval_step

@@ -6,7 +6,7 @@ Mirrors ``dad3dheads_tpu/utils.py``:
   backward op that produced a NaN (the ``Trainer``'s ``debug_nans``);
 - ``profile_trace``: a ``torch.profiler`` capture of a region, written as a
   Chrome trace into ``log_dir`` (CPU and, where there is one, CUDA
-  activity); ``annotate`` names a span of it.
+  activity); the program's stage spans (``tracing.span``) stand in it.
 """
 
 from __future__ import annotations
@@ -66,10 +66,3 @@ def profile_trace(log_dir: str) -> Iterator[None]:
     finally:
         prof.stop()
         prof.export_chrome_trace(os.path.join(log_dir, f"trace_{int(time.time() * 1e3)}.json"))
-
-
-def annotate(name: str):
-    """Named profiler region for the trace timeline."""
-    from torch.profiler import record_function
-
-    return record_function(name)

@@ -1,5 +1,5 @@
 """The port's small surface against the JAX package on the CPU: ``utils``
-(logger, yaml, paths, NaN debugging, a profiler trace with a named span),
+(logger, yaml, paths, NaN debugging, a profiler trace with a stage span),
 the rest of ``core/projection.py`` on seeded inputs, and ``cli.visualize``'s
 PNG against the JAX CLI's on one written dataset item."""
 
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from dad3dheads_tpu_torch import tracing
 from dad3dheads_tpu_torch import utils as tutils
 from dad3dheads_tpu_torch.core import projection as tproj
 
@@ -43,7 +44,7 @@ def test_utils_match_jax(tmp_path):
 
 def test_profile_trace_writes_a_chrome_trace(tmp_path):
     with tutils.profile_trace(str(tmp_path / "trace")):
-        with tutils.annotate("dad3d_span"):
+        with tracing.span("dad3d_span"):
             torch.ones(64, 64).matmul(torch.ones(64, 64))
     (name,) = os.listdir(tmp_path / "trace")
     with open(tmp_path / "trace" / name) as f:
