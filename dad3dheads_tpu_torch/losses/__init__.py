@@ -223,6 +223,11 @@ class LossModule:
             self._on_device[key] = SubsetWeights(s.weights, tuple(_index(i, device) for i in s.indices))
         return self._on_device[key]
 
+    def gates(self, epoch: int) -> Tuple[float, ...]:
+        """Each criterion's gate at ``epoch``: 1.0 from its ``epoch_start``
+        on, 0.0 before."""
+        return tuple(1.0 if int(epoch) >= c.get("epoch_start", 0) else 0.0 for c in self.config)
+
     def __call__(
         self,
         outputs: Dict[str, torch.Tensor],
@@ -231,8 +236,8 @@ class LossModule:
         epoch: int = 0,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         losses: Dict[str, torch.Tensor] = {}
-        gates = []
-        for c in self.config:
+        gates = self.gates(epoch)
+        for c, gate in zip(self.config, gates):
             kind = c["kind"]
             if kind == "iou":
                 val = iou_loss(outputs[OUTPUT_LANDMARKS_HEATMAP], targets[TARGET_LANDMARKS_HEATMAP])
@@ -260,9 +265,7 @@ class LossModule:
                 )
             else:
                 raise KeyError(kind)
-            gate = 1.0 if int(epoch) >= c.get("epoch_start", 0) else 0.0
             losses[c["name"]] = val * c.get("weight", 1.0) * gate
-            gates.append(gate)
 
         stack = torch.stack(list(losses.values()))
         if self.reduction == "sum":

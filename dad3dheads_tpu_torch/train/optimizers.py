@@ -116,12 +116,22 @@ class Optimizer:
     def params(self):
         return [p for group in self.optimizer.param_groups for p in group["params"]]
 
+    @property
+    def capturable(self) -> bool:
+        """Whether the update runs without the host, so that a CUDA graph can
+        hold it: torch's ``capturable`` mode, which keeps the step counters
+        on the device (lamb reads its counter on the host; sgd has no such
+        mode)."""
+        return all(group.get("capturable", False) for group in self.optimizer.param_groups)
+
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self, scale: float = 1.0, sharded=None) -> torch.Tensor:
-        """Clip, then update at lr * ``scale``. A parameter the loss did not
+    def step(self, scale: float | torch.Tensor = 1.0, sharded=None) -> torch.Tensor:
+        """Clip, then update at lr * ``scale``: a float, or for a capturable
+        optimizer a 0-d tensor on the parameters' device, whose value a CUDA
+        graph of the step reads at each replay. A parameter the loss did not
         reach gets a zero gradient, as in optax. Returns the global gradient
         norm before clipping (``optax.global_norm(grads)``). ``sharded``:
         (parameters, process group) of parameters split over that group
@@ -138,8 +148,10 @@ class Optimizer:
             ids = {id(p) for p in sharded[0]}
             sharded = ([i for i, p in enumerate(params) if id(p) in ids], sharded[1])
         norm = clip_by_global_norm_([p.grad for p in params], self.gradient_clip_val, sharded)
+        if not isinstance(scale, torch.Tensor):
+            scale = float(scale)
         for group, lr in zip(self.optimizer.param_groups, self.base_lrs):
-            group["lr"] = lr * float(scale)
+            group["lr"] = lr * scale
         self.optimizer.step()
         return norm
 
@@ -147,7 +159,12 @@ class Optimizer:
         return self.optimizer.state_dict()
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.optimizer.load_state_dict(state)  # step() sets each group's lr from base_lrs
+        # step() sets each group's lr from base_lrs. Each group keeps its own
+        # capturable flag (a state written on the other device carries the
+        # other one), by which torch places the loaded step counters.
+        groups = [{**g, "capturable": own["capturable"]} if "capturable" in own else g
+                  for g, own in zip(state["param_groups"], self.optimizer.param_groups)]
+        self.optimizer.load_state_dict({**state, "param_groups": groups})
 
 
 def get_optimizer(
@@ -170,16 +187,20 @@ def get_optimizer(
     momentum = float(config.pop("momentum", 0.9))
     nesterov = bool(config.pop("nesterov", False))
     params = list(params)
+    # on the card, the updates that have a capturable mode take it, so that a
+    # CUDA graph of the train step can hold them (train/step.py)
+    capturable = bool(params) and all(p.is_cuda for p in params)
 
     if name == "adam":
         # optax chains add_decayed_weights before adam: torch's L2 weight_decay
-        opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+        opt = torch.optim.Adam(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay, capturable=capturable)
     elif name == "adamw":
-        opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
+        opt = torch.optim.AdamW(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay,
+                                capturable=capturable)
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=lr, momentum=momentum, nesterov=nesterov, weight_decay=weight_decay)
     elif name == "radam":
-        opt = torch.optim.RAdam(params, lr=lr, betas=betas, eps=eps)
+        opt = torch.optim.RAdam(params, lr=lr, betas=betas, eps=eps, capturable=capturable)
     elif name == "lamb":
         opt = Lamb(params, lr=lr, betas=betas, eps=eps, weight_decay=weight_decay)
     else:
