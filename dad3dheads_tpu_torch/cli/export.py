@@ -11,13 +11,24 @@ default); ``--devices`` are the devices the artifact carries programs for
 Serve the file with ``dad3dheads_tpu_torch.api.ExportedFaceMeshPredictor(path,
 device=...)``: no model code or FLAME assets are needed there.
 ``--quant-amax`` (an amax table from ``cli.calibrate_int8``) writes the int8
-artifact of a resnet50 checkpoint.
+artifact of a resnet50 checkpoint. The artifact holds the resnet50 and
+mobilenet_w1 DAD-3DNets; a swinv2_b_w16 checkpoint is refused
+(:func:`check_exportable`) and served through ``FaceMeshPredictor``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+
+EXPORTABLE = ("resnet50", "mobilenet_w1")
+
+
+def check_exportable(backbone: str) -> None:
+    """Raises for a backbone whose network the artifact does not hold."""
+    if backbone not in EXPORTABLE:
+        raise ValueError(f"the deployment artifact holds a resnet50 or mobilenet_w1 DAD-3DNet; its export is "
+                         f"not built for {backbone!r}: serve it with FaceMeshPredictor")
 
 
 def main(argv=None) -> str:
@@ -37,6 +48,7 @@ def main(argv=None) -> str:
                     help="devices the artifact carries programs for (default: cuda cpu with a card, else cpu)")
     ap.add_argument("--quant-amax", default=None, help="amax .npz: export the int8 artifact (resnet50)")
     args = ap.parse_args(argv)
+    check_exportable(args.backbone)
 
     from ..api.export import default_devices, export_predictor
     from ..api.predictor import FaceMeshPredictor

@@ -107,6 +107,10 @@ def main(argv=None) -> None:
     from ..train.loop import Trainer
 
     config = load_config(args.config, args.overrides)
+    if config.get("export_aot", False):  # refused before training, not after it
+        from .export import check_exportable
+
+        check_exportable((config.get("model") or {}).get("backbone", "resnet50"))
     distributed = bool(config.get("distributed"))
     device = init_distributed(args.device) if distributed else torch.device(args.device)
     try:

@@ -1,5 +1,7 @@
-"""DAD-3DNet: staged encoder (resnet50 or mobilenet_w1) + BiFPN + heatmap
-head + fusion + 3DMM heads. Mirrors ``dad3dheads_tpu/models/dad3dnet.py``.
+"""DAD-3DNet: staged encoder (resnet50, mobilenet_w1 or swinv2_b_w16) + BiFPN
++ heatmap head + fusion + 3DMM heads. Mirrors ``dad3dheads_tpu/models/dad3dnet.py``
+(which has the two CNN encoders; the SwinV2 encoder, ``models/swin.py``, is
+the port's own).
 
 Public layout is the reference's: NHWC images in; heatmap (B, H/4, W/4, 68),
 413-dim 3DMM and (B, 68, 2) landmarks out. Inside, the NHWC input viewed as
@@ -32,8 +34,9 @@ from ..precision import fp32_exact
 from .bifpn import BiFPN, ChannelScale
 from .mobilenet import MobileNetStages
 from .resnet import ResNet50Stages
+from .swin import SwinV2Stages
 
-ENCODERS = {"resnet50": ResNet50Stages, "mobilenet_w1": MobileNetStages}
+ENCODERS = {"resnet50": ResNet50Stages, "mobilenet_w1": MobileNetStages, "swinv2_b_w16": SwinV2Stages}
 
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
@@ -77,8 +80,8 @@ class FusionLayer(nn.Module):
 
 class DAD3DNet(nn.Module):
     """The image -> (heatmap, 3DMM, landmarks) network on the ``backbone``
-    encoder (``ENCODERS``: resnet50 or mobilenet_w1); the BiFPN, fusion and
-    heads take their widths from its channel table."""
+    encoder (``ENCODERS``: resnet50, mobilenet_w1 or swinv2_b_w16); the
+    BiFPN, fusion and heads take their widths from its channel table."""
 
     def __init__(
         self,
@@ -176,8 +179,16 @@ def init_parameters(model: nn.Module, generator: Optional[torch.Generator] = Non
     sqrt(1 / fan_in) / 0.8796; fan_in = ``weight[0].numel()``, k*k for a
     depthwise kernel, as flax's (k, k, 1, C)), biases zero, BN identity, fusion weights one.
     The numbers differ from flax's (another generator); the distribution is
-    the one the reference trains from."""
+    the one the reference trains from. A SwinV2 encoder takes SwinV2's own
+    initialisation (``SwinV2Stages.reset_parameters``), drawn first."""
+    encoder = getattr(model, "encoder", None)
+    own = set()
+    if isinstance(encoder, SwinV2Stages):
+        encoder.reset_parameters(generator)
+        own = set(encoder.modules())
     for m in model.modules():
+        if m in own:
+            continue
         if isinstance(m, (nn.Conv2d, nn.Linear, ChannelScale)):
             std = (1.0 / m.weight[0].numel()) ** 0.5 / 0.87962566103423978
             nn.init.trunc_normal_(m.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)

@@ -107,6 +107,7 @@ class BatchNorm2d(nn.BatchNorm2d):
 ENCODER_CHANNELS: Dict[str, Dict[str, int]] = {
     "resnet50": {"layer0": 2048, "layer1": 1024, "layer2": 512, "layer3": 256, "layer4": 64},
     "mobilenet_w1": {"layer0": 1024, "layer1": 512, "layer2": 256, "layer3": 128, "layer4": 64},
+    "swinv2_b_w16": {"layer0": 1024, "layer1": 512, "layer2": 256, "layer3": 128, "layer4": 128},
 }
 RESNET50_UNITS = (3, 4, 6, 3)
 RESNET50_CHANNELS = (256, 512, 1024, 2048)

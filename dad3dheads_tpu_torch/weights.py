@@ -13,8 +13,14 @@ OIHW (a depthwise (k, k, 1, C) kernel <-> (C, 1, k, k)), dense (in, out) <->
 
 A flax tree or a state dict tells its backbone by its encoder's first
 layer (:func:`flax_backbone`, :func:`state_dict_backbone`): a checkpoint of
-one backbone refuses to load into a model of the other, with an error that
+one backbone refuses to load into a model of another, with an error that
 names both.
+
+The SwinV2 DAD-3DNet (``swinv2_b_w16``) has no counterpart in the JAX
+package, so its ``.msgpack`` checkpoints, which the port writes and reads
+(the trainer's export, ``FaceMeshPredictor``), hold its encoder under the
+port's own flax-style names (:func:`_swin_encoder_entries`); the JAX
+package's loaders cannot read them.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from .models.bifpn import BIFPN_NODES
 from .models.layers import ConvBlock, MaskPredictionHead, MixSepConv, PixelShuffleUpsample, SepConv
 from .models.mobilenet import MOBILENET_UNITS
 from .models.resnet import RESNET50_UNITS
+from .models.swin import SwinV2Stages, WindowAttention
 
 NameMap = Dict[str, Tuple[str, str]]
 
@@ -96,6 +103,30 @@ def _mobilenet_encoder_entries(flax_prefix: str, torch_prefix: str) -> NameMap:
     return m
 
 
+def _swin_encoder_entries(flax_prefix: str, torch_prefix: str) -> NameMap:
+    """The published SwinV2 encoder (``models/swin.py``) under the port's own
+    flax-style names: each module's path with '/' for '.', then ``kernel``
+    (a linear layer's (in, out), the patch conv's HWIO) and ``bias``, a
+    LayerNorm's ``scale`` and ``bias``, and an attention's ``q_bias``,
+    ``v_bias`` and ``logit_scale`` as they are."""
+    with torch.device("meta"):
+        encoder = SwinV2Stages()
+    m: NameMap = {}
+    for name, module in encoder.model.named_modules():
+        fp, tp = _path("params", flax_prefix, name.replace(".", "/")), f"{torch_prefix}.{name}"
+        if isinstance(module, (torch.nn.Linear, torch.nn.Conv2d)):
+            m[f"{fp}/kernel"] = (f"{tp}.weight", "dense" if isinstance(module, torch.nn.Linear) else "conv")
+            if module.bias is not None:
+                m[f"{fp}/bias"] = (f"{tp}.bias", "id")
+        elif isinstance(module, torch.nn.LayerNorm):
+            m[f"{fp}/scale"] = (f"{tp}.weight", "id")
+            m[f"{fp}/bias"] = (f"{tp}.bias", "id")
+        elif isinstance(module, WindowAttention):
+            for leaf in ("q_bias", "v_bias", "logit_scale"):
+                m[f"{fp}/{leaf}"] = (f"{tp}.{leaf}", "id")
+    return m
+
+
 def name_map(backbone: str = "resnet50") -> NameMap:
     """flax path ('/'-joined, collection first) -> (torch state-dict key,
     layout kind) for the DAD-3DNet of ``backbone``."""
@@ -103,8 +134,10 @@ def name_map(backbone: str = "resnet50") -> NameMap:
         m = _resnet50_encoder_entries("encoder", "encoder.model")
     elif backbone == "mobilenet_w1":
         m = _mobilenet_encoder_entries("encoder", "encoder.model")
+    elif backbone == "swinv2_b_w16":
+        m = _swin_encoder_entries("encoder", "encoder.model")
     else:
-        raise KeyError(f"unknown backbone {backbone!r}: resnet50 or mobilenet_w1")
+        raise KeyError(f"unknown backbone {backbone!r}: resnet50, mobilenet_w1 or swinv2_b_w16")
 
     for p in ("p3", "p4", "p5", "p6"):
         m[f"params/bifpn/{p}/kernel"] = (f"bifpn.{p}.weight", "conv")
@@ -180,7 +213,10 @@ def flax_backbone(variables: Mapping[str, Any]) -> str:
         return "mobilenet_w1"
     if "init_block" in encoder:
         return "resnet50"
-    raise KeyError("flax tree has no encoder of a known backbone (params/encoder/init_conv or init_block)")
+    if "patch_embed" in encoder:
+        return "swinv2_b_w16"
+    raise KeyError("flax tree has no encoder of a known backbone (params/encoder/init_conv, init_block or "
+                   "patch_embed)")
 
 
 def state_dict_backbone(state_dict: Mapping[str, Any]) -> str:
@@ -189,7 +225,10 @@ def state_dict_backbone(state_dict: Mapping[str, Any]) -> str:
         return "mobilenet_w1"
     if "encoder.model.init_block.conv.bn.weight" in state_dict:
         return "resnet50"
-    raise KeyError("state dict has no encoder of a known backbone (encoder.model.init_block.*)")
+    if "encoder.model.patch_embed.proj.weight" in state_dict:
+        return "swinv2_b_w16"
+    raise KeyError("state dict has no encoder of a known backbone (encoder.model.init_block.* or "
+                   "encoder.model.patch_embed.*)")
 
 
 def _check_backbone(found: str, model: torch.nn.Module, what: str) -> None:
